@@ -1,0 +1,9 @@
+"""llama3.2-1b — small llama3.  [hf:meta-llama/Llama-3.2-1B; unverified]
+16L d_model=2048 32H (GQA kv=8) d_ff=8192 vocab=128256."""
+from repro_torch.models.common import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama3.2-1b", family="dense",
+    n_layers=16, d_model=2048, n_heads=32, n_kv_heads=8,
+    d_ff=8192, vocab=128256, head_dim=64, tie_embeddings=True,
+)
