@@ -4,13 +4,17 @@
 1. Builds the port's CUDA kernels from src/repro_torch/csrc (nvcc, sm_90a)
    and prints the build time and what ptxas reports.
 2. Holds each kernel against its plain PyTorch version on the card at the
-   serving path's shapes, and times kernel, plain version and the closest
-   single PyTorch call (a yardstick only; the port never calls it).
-3. Serves llama3.2-1b at full width and depth (random weights from a seed)
-   through the port's Engine: 12 requests over 8 slots, so slots are
-   reused, and checks that every decode step ran the kernel once per
-   layer.  Then holds one decode step's logits, kernel-backed, against the
-   same step with the plain attention.
+   serving paths' shapes, and times kernel, plain version and, where one
+   exists, the closest single PyTorch call (a yardstick only; the port
+   never calls it): decode attention at llama3.2-1b's decode shape, the
+   WKV6 recurrence at rwkv6-1.6b's decode and prefill shapes.
+3. Serves llama3.2-1b and then rwkv6-1.6b at full width and depth (random
+   weights from a seed) through the port's Engine: 12 requests over 8
+   slots each, so slots are reused, and checks that the model's kernel
+   ran once per layer in every decode step (decode_attn) or in every
+   decode step and every prefill (wkv6).  Then holds one decode step's
+   logits, kernel-backed, against the same step with the plain version,
+   and profiles a few decode steps.
 4. Prints the kernels as one JSON line, the card's name and power limit,
    and as its last line {"ok": true, "device": {...}}.
 
@@ -38,17 +42,24 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 L2_BYTES = 50 * 2 ** 20
 
-# Serving shapes: llama3.2-1b, 8 slots of 2048 positions
+# Serving shapes: 8 slots of 2048 positions; llama3.2-1b has 32 query and
+# 8 KV heads, rwkv6-1.6b 32 heads, both of 64
 B, H, HKV, D, S_MAX = 8, 32, 8, 64, 2048
 N_REQUESTS = 12
 # bf16 outputs of kernel and plain version may land on neighbouring bf16
 # values (one step is 2^-7 relative); float32 as tests/test_kernels.py.
 KERNEL_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
-# One full-depth decode step, kernel against plain attention, both bf16:
-# where the two round an attention output to neighbouring bf16 values, 16
+# wkv6 output (rtol, atol): float32 sums in another order, 1e-4; in bf16
+# both round the same float32 value once, so they may land one bf16 step
+# (2^-7 relative) apart.  Its float32 state: 1e-4 in both.
+WKV6_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-4)}
+WKV6_STATE_TOL = 1e-4
+WKV6_PREFILL_T = (1024, 777)
+# One full-depth decode step, kernel against plain version, both bf16:
+# where the two round a kernel output to neighbouring bf16 values, the
 # layers of random weights carry the difference into the logits.  Measured
-# on an H100: 1.3% of the largest logit magnitude (5.7e-2 of 4.3), argmax
-# all equal.  Held to 5%.
+# on an H100 for llama3.2-1b: 1.3% of the largest logit magnitude (5.7e-2
+# of 4.3), argmax all equal.  Held to 5% for both models.
 LOGITS_REL_TOL = 5e-2
 PROFILE_STEPS = 4
 
@@ -114,6 +125,20 @@ def decode_attn_bound(lengths, dtype):
                                      else "operations")
 
 
+def wkv6_bound(B, T, H, D, dtype, with_state0: bool):
+    """(bound_ms, bound_by): r, k, v, w and u read once, the state read
+    (when given) and written once, the output written; 7 D^2 float32
+    flops per (batch, head, step)."""
+    n = B * T * H * D
+    nbytes = 5 * n * dtype.itemsize + 4 * H * D + \
+        (2 if with_state0 else 1) * 4 * B * H * D * D
+    flops = 7 * B * H * T * D * D
+    t_mem = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[torch.float32]
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
+                                     else "operations")
+
+
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -127,7 +152,7 @@ def phase_build():
                         or "spill" in ln or "error" in ln))
 
 
-def phase_kernel_check(card: str):
+def phase_decode_attn_check(card: str):
     """decode_attn against its plain version at the serving shapes."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attn.ops import decode_attn
@@ -190,6 +215,8 @@ def phase_kernel_check(card: str):
                         name="decode_attn", route="cuda",
                         source="src/repro_torch/csrc/decode_attn.cu",
                         replaces="src/repro/kernels/decode_attn/kernel.py:60",
+                        shape=f"B={B} H={H} Hkv={HKV} D={D} S={S} bf16, "
+                              f"every row full",
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bound_ms, bound_by=bound_by,
                         library_ms=library_ms)
@@ -197,16 +224,122 @@ def phase_kernel_check(card: str):
     return entry
 
 
-def phase_serve(card: str):
-    """llama3.2-1b, full width and depth, served through the Engine."""
-    import repro_torch.models.attention as attention
+def phase_wkv6_check(card: str):
+    """wkv6 against its plain version at rwkv6-1.6b's serving shapes: the
+    decode step (B=8, T=1) from a nonzero state, and batch-1 prefills from
+    zeros, whole and in two halves with the carried state."""
+    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+
+    cyc = sleep_cycles_per_ms()
+    entry = None
+    cases = [(B, 1, True)] + [(1, T, False) for T in WKV6_PREFILL_T]
+    for dtype in (torch.bfloat16, torch.float32):
+        for nb, T, with_state0 in cases:
+            gen = torch.Generator(device="cuda").manual_seed(T + nb)
+            shape = (nb, T, H, D)
+
+            def make():
+                r, k = (0.5 * torch.randn(shape, generator=gen,
+                                          device="cuda") for _ in range(2))
+                v = torch.randn(shape, generator=gen, device="cuda")
+                w = 0.9 + 0.099 * torch.rand(shape, generator=gen,
+                                             device="cuda")
+                u = 0.3 * torch.randn((H, D), generator=gen, device="cuda")
+                s0 = torch.randn((nb, H, D, D), generator=gen,
+                                 device="cuda") if with_state0 else None
+                return tuple(a.to(dtype) for a in (r, k, v, w)) + (u, s0)
+
+            nbytes = 5 * nb * T * H * D * dtype.itemsize + \
+                8 * nb * H * D * D
+            bufs = [make() for _ in range(max(2, math.ceil(
+                2 * L2_BYTES / nbytes)))]
+            got = wkv6(*bufs[0])
+            torch.cuda.synchronize()
+            want = wkv6_ref(*bufs[0])
+            err = (got[0].float() - want[0].float()).abs().max().item()
+            s_err = (got[1] - want[1]).abs().max().item()
+            rtol, atol = WKV6_TOL[dtype]
+            ok = bool(torch.allclose(got[0].float(), want[0].float(),
+                                     rtol=rtol, atol=atol)
+                      and torch.allclose(got[1], want[1],
+                                         rtol=WKV6_STATE_TOL,
+                                         atol=WKV6_STATE_TOL))
+            label = "decode" if T == 1 else "prefill"
+            if T > 1:     # two halves with the carried state
+                r, k, v, w, u, _ = bufs[0]
+                half = T // 2
+                h1, s1 = wkv6(*(a[:, :half].contiguous()
+                                for a in (r, k, v, w)), u)
+                h2, s2 = wkv6(*(a[:, half:].contiguous()
+                                for a in (r, k, v, w)), u, s1)
+                torch.cuda.synchronize()
+                c_err = max(
+                    (torch.cat([h1, h2], 1).float() - got[0].float())
+                    .abs().max().item(), (s2 - got[1]).abs().max().item())
+                ok = ok and bool(
+                    torch.allclose(torch.cat([h1, h2], 1).float(),
+                                   got[0].float(), rtol=rtol, atol=atol)
+                    and torch.allclose(s2, got[1], rtol=WKV6_STATE_TOL,
+                                       atol=WKV6_STATE_TOL))
+                label += f", halves with the carried state differ by " \
+                    f"{c_err:.3e}"
+            ms, host_ms = time_ms([lambda b=b: wkv6(*b) for b in bufs],
+                                  200 if T == 1 else 20, cyc)
+            plain_ms, _ = time_ms([lambda b=b: wkv6_ref(*b) for b in bufs],
+                                  20 if T == 1 else 2, cyc)
+            bound_ms, bound_by = wkv6_bound(nb, T, H, D, dtype, with_state0)
+            print(f"[wkv6] {str(dtype)[6:]} B={nb} T={T} H={H} D={D} "
+                  f"({label}): max_abs_err {err:.3e} (tol rtol {rtol:.2e} "
+                  f"atol {atol:.0e}), state {s_err:.3e} (tol "
+                  f"{WKV6_STATE_TOL}); kernel {ms:.5f} ms (host "
+                  f"{host_ms:.5f} ms per call), plain {plain_ms:.5f} ms, "
+                  f"bound {bound_ms:.5f} ms ({bound_by}), "
+                  f"{100 * bound_ms / ms:.1f}% of bound [{card}]")
+            if not ok:
+                raise AssertionError(
+                    f"wkv6 disagrees with its plain version: {dtype} "
+                    f"B={nb} T={T} max_abs_err {err}, state {s_err}")
+            if dtype == torch.bfloat16 and T == 1:
+                entry = dict(
+                    name="wkv6", route="cuda",
+                    source="src/repro_torch/csrc/wkv6.cu",
+                    replaces="src/repro/kernels/wkv6/kernel.py:53",
+                    shape=f"B={nb} T={T} H={H} D={D} bf16, decode step",
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+            del bufs
+    return entry
+
+
+def _serve_spec(arch: str):
+    """(kernel op, module whose attribute names it, plain version, kernel
+    launches per layer and admitted prompt, a part of the names of the
+    op's device kernels) of ``arch``'s path."""
+    if arch == "llama3.2-1b":
+        import repro_torch.models.attention as module
+        from repro_torch.kernels.decode_attn.ops import decode_attn as op
+        from repro_torch.kernels.decode_attn.ref import decode_attn_ref as ref
+        return op, module, ref, 0, "decode_"
+    import repro_torch.models.rwkv6 as module
+    from repro_torch.kernels.wkv6.ops import wkv6 as op
+    from repro_torch.kernels.wkv6.ref import wkv6_ref as ref
+    return op, module, ref, 1, "wkv6_kernel"
+
+
+def phase_serve(card: str, arch: str):
+    """``arch`` at full width and depth, served through the Engine; its
+    kernel runs once per layer in every decode step and, with
+    ``per_prompt``, in every prefill."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.decode_attn.ops import decode_attn
-    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
-    from repro_torch.models.zoo import build_model
+    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.models.zoo import build_model, cache_tensors
     from repro_torch.serve.engine import Engine, Request
 
-    cfg = get_config("llama3.2-1b")
+    op, module, ref, per_prompt, device_kernel = _serve_spec(arch)
+    name = op.__name__
+    cfg = get_config(arch)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=model.device).manual_seed(0))
@@ -227,7 +360,7 @@ def phase_serve(card: str):
     prefill_s, decode_s, steps, decoded, prompt_tokens = 0.0, 0.0, 0, 0, 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    decode_attn.launches = 0
+    decode_attn.launches = wkv6.launches = 0
     while pending or eng.n_active:
         while pending and eng.has_free_slot():
             req = pending.popleft()
@@ -242,27 +375,32 @@ def phase_serve(card: str):
         torch.cuda.synchronize()
         decode_s += time.perf_counter() - t0
         steps += 1
-    launches = decode_attn.launches
+    launches = op.launches
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    if launches != cfg.n_layers * steps:
-        raise AssertionError(f"decode_attn launched {launches} times in "
-                             f"{steps} decode steps of {cfg.n_layers} layers")
+    want = cfg.n_layers * (steps + per_prompt * N_REQUESTS)
+    if launches != want:
+        raise AssertionError(f"{name} launched {launches} times, not "
+                             f"{want}, in {steps} decode steps and "
+                             f"{N_REQUESTS} prefills of {cfg.n_layers} "
+                             f"layers")
     for r in reqs:
         if not (r.done and len(r.out) == r.max_new
                 and all(0 <= t < cfg.vocab for t in r.out)):
             raise AssertionError(f"request {r.rid} ended wrongly: "
                                  f"{len(r.out)}/{r.max_new} tokens")
+    how = f"{cfg.n_layers} x {steps}" if not per_prompt else \
+        f"{cfg.n_layers} x ({steps} + {N_REQUESTS})"
     print(f"[serve] {N_REQUESTS} requests, {prompt_tokens} prompt tokens, "
-          f"{decoded} decoded tokens in {steps} decode steps; decode_attn "
-          f"launches {launches} = {cfg.n_layers} x {steps}")
+          f"{decoded} decoded tokens in {steps} decode steps; {name} "
+          f"launches {launches} = {how}")
     print(f"[serve] prefill {prefill_s * 1e3:.1f} ms total "
           f"({prompt_tokens / prefill_s:.0f} prompt tokens/s, batch-1 "
           f"prefills); decode {decode_s * 1e3:.1f} ms total, "
           f"{decode_s / steps * 1e3:.2f} ms/step, {decoded / decode_s:.1f} "
           f"tokens/s; peak memory {peak_gib:.2f} GiB [{card}]")
 
-    # One decode step with all slots busy: kernel against plain attention.
+    # One decode step with all slots busy: kernel against plain version.
     for r in [Request(rid=100 + i, prompt=rng.integers(
             0, cfg.vocab, size=int(rng.integers(64, 1025))),
                           max_new=PROFILE_STEPS + 2)
@@ -273,15 +411,17 @@ def phase_serve(card: str):
     toks = torch.from_numpy(eng.last_tok[:, None].astype(np.int64)).to(dev)
     pos = torch.from_numpy(eng.lengths[:, None].astype(np.int64)).to(dev)
     lens = torch.from_numpy(eng.lengths + 1).to(dev)
-    saved = [c.clone() for c in eng.caches["dense"]]
+    saved = [c.clone() for c in cache_tensors(eng.caches)]
     logits, _ = model.decode(params, eng.caches, toks, pos, lens)
-    for c, s in zip(eng.caches["dense"], saved):
+    for c, s in zip(cache_tensors(eng.caches), saved):
         c.copy_(s)
-    attention.decode_attn = decode_attn_ref
+    setattr(module, name, ref)
     try:
         plain, _ = model.decode(params, eng.caches, toks, pos, lens)
     finally:
-        attention.decode_attn = decode_attn
+        setattr(module, name, op)
+    for c, s in zip(cache_tensors(eng.caches), saved):
+        c.copy_(s)
     logits, plain = logits.float(), plain.float()
     if not (torch.isfinite(logits).all() and logits.shape == (B, 1, cfg.vocab)):
         raise AssertionError(f"decode logits not finite or shaped "
@@ -289,19 +429,20 @@ def phase_serve(card: str):
     err = (logits - plain).abs().max().item()
     scale = plain.abs().max().item()
     agree = (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
-    print(f"[serve] decode step, kernel vs plain attention: max_abs_err "
+    print(f"[serve] decode step, kernel vs plain {name}: max_abs_err "
           f"{err:.3e}, max |logit| {scale:.3f}, tol "
           f"{LOGITS_REL_TOL * scale:.3e}, argmax agreement {agree:.3f}")
     if err > LOGITS_REL_TOL * scale:
         raise AssertionError("kernel-backed decode logits disagree with the "
                              "plain-backed ones")
-    profile_steps(eng, card)
-    return {"decode_attn": launches}
+    profile_steps(eng, card, device_kernel)
+    return {name: launches}
 
 
-def profile_steps(eng, card: str) -> None:
+def profile_steps(eng, card: str, kernel: str) -> None:
     """Device busy time and the costliest kernels of a few decode steps
-    with all slots busy, from torch.profiler."""
+    with all slots busy, from torch.profiler, and the rows whose names
+    hold ``kernel`` wherever they rank."""
     from torch.profiler import ProfilerActivity, profile
 
     def dev_us(e):
@@ -324,7 +465,8 @@ def profile_steps(eng, card: str) -> None:
           f"busy: {wall_ms:.2f} ms/step under the profiler, device busy "
           f"{busy_ms:.3f} ms/step in {n_launch:.0f} kernel launches, idle "
           f"share {1 - busy_ms / wall_ms:.3f} [{card}]")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
+    ranked = sorted(kernels, key=dev_us, reverse=True)
+    for e in ranked[:8] + [e for e in ranked[8:] if kernel in e.key]:
         print(f"[profile]   {dev_us(e) / 1e3 / PROFILE_STEPS:.4f} ms/step, "
               f"{e.count / PROFILE_STEPS:.0f} launches/step: {e.key[:100]}")
 
@@ -338,10 +480,14 @@ def main() -> int:
           f", CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_build()
-    entry = phase_kernel_check(card)
-    launches = phase_serve(card)
-    entry["launches"] = launches[entry["name"]]
-    print(json.dumps({"kernels": [entry]}))
+    entries = [phase_decode_attn_check(card), phase_wkv6_check(card)]
+    launches = {}
+    for arch in ("llama3.2-1b", "rwkv6-1.6b"):
+        launches.update(phase_serve(card, arch))
+        torch.cuda.empty_cache()
+    for entry in entries:
+        entry["launches"] = launches[entry["name"]]
+    print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

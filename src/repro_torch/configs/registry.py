@@ -23,7 +23,7 @@ ARCH_IDS = [
     "deepseek-v3-671b",
 ]
 
-PORTED = ("llama3.2-1b",)
+PORTED = ("llama3.2-1b", "rwkv6-1.6b")
 
 _MODULE = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

@@ -6,10 +6,14 @@ every slot.  Prefill admits new requests into free slots.  The engine
 optionally carries an *execution model* that advances ``clock_s``, the
 modeled wall clock the traffic harness schedules arrivals against.
 
-The KV cache is written in place: prefill copies a prompt's K/V into its
-slot and decode assigns each new position, so a recycled slot never sees
-the previous request's K/V (every position below ``lengths`` is rewritten
-before it is read).
+Caches are written in place.  Admission writes a prefilled slot by the
+reference's rule: batch on axis 1, and a sequence axis only where the
+prefill's shape differs from the cache's.  For the transformer that writes
+a prompt's K/V into positions ``[0, plen)`` of its slot, and decode
+assigns each new position, so a recycled slot never sees the previous
+request's K/V (every position below ``lengths`` is rewritten before it is
+read).  An rwkv6 state has no sequence axis, so admission overwrites the
+slot's whole state.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..models.zoo import Model
+from ..models.zoo import Model, cache_tensors
 
 
 @dataclass
@@ -93,14 +97,24 @@ class Engine:
                 toks = self._tensor(np.asarray(req.prompt, np.int64)[None])
                 logits, caches = self.model.prefill(
                     self.params, toks, self._tensor(np.asarray([plen])))
-                for full, new in zip(self.caches["dense"], caches["dense"]):
-                    full[:, i, :, :plen] = new[:, 0]
+                self._merge_cache(i, caches)
                 self.lengths[i] = plen
                 self.last_tok[i] = int(logits[0, -1].argmax())
                 if self.exec_model is not None:
                     self.clock_s += self.exec_model.prefill_s(plen)
                 return True
         return False
+
+    def _merge_cache(self, slot: int, caches: Any) -> None:
+        for full, new in zip(cache_tensors(self.caches),
+                             cache_tensors(caches)):
+            idx = [slice(None)] * new.ndim
+            idx[1] = slot
+            seq = [ax for ax in range(2, new.ndim)
+                   if new.shape[ax] != full.shape[ax]]
+            if seq:
+                idx[seq[0]] = slice(0, new.shape[seq[0]])
+            full[tuple(idx)] = new[:, 0]
 
     # --------------------------------------------------------------- step
     def step(self) -> Dict[int, int]:

@@ -112,7 +112,7 @@ def test_full_config_is_the_published_one():
 
 
 @pytest.mark.parametrize("changes,match", [
-    (dict(family="ssm"), "rwkv6"), (dict(family="hybrid"), "zamba2"),
+    (dict(mtp=True), "MTP"), (dict(family="hybrid"), "zamba2"),
     (dict(moe=True), "MoE"), (dict(mla=True), "MLA"),
     (dict(family="audio", input_mode="embeddings"), "embedding inputs")])
 def test_unported_families_raise(changes, match):
@@ -123,7 +123,7 @@ def test_unported_families_raise(changes, match):
 
 def test_unported_config_raises():
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("rwkv6-1.6b")
+        get_config("zamba2-1.2b")
     with pytest.raises(KeyError):
         get_config("gpt-17")
     assert isinstance(get_config("llama3.2-1b"), ModelConfig)
