@@ -8,14 +8,25 @@
    exists, the closest single PyTorch call (a yardstick only; the port
    never calls it): decode attention at llama3.2-1b's decode shape, the
    WKV6 recurrence at rwkv6-1.6b's decode and prefill shapes.
-3. Serves llama3.2-1b and then rwkv6-1.6b at full width and depth (random
+3. The Table-I kernels (phase_table1_kernels): gemm_os at llama3.2-1b's
+   ffn_in GEMM site (prefill in bf16 and float32, decode in bf16, the
+   fused epilogues, a ragged shape, both tile grids bit for bit),
+   conv2d_os at the paper's Table-I CONV as a batch of 32 edge images
+   (bf16, float32) and as Listing 2 writes it (one input channel), and
+   qgemm_int8 at the ffn_in site, bit for bit; each held against its
+   plain version and timed like the others.  Then holds each row of the
+   kernel path's entry point, repro_torch.bench.bench_kernel_micro, on
+   the row's own inputs against the plain version, drives the entry
+   point, and checks that each kernel launched exactly as often as its
+   rows called it.
+4. Serves llama3.2-1b and then rwkv6-1.6b at full width and depth (random
    weights from a seed) through the port's Engine: 12 requests over 8
    slots each, so slots are reused, and checks that the model's kernel
    ran once per layer in every decode step (decode_attn) or in every
    decode step and every prefill (wkv6).  Then holds one decode step's
    logits, kernel-backed, against the same step with the plain version,
    and profiles a few decode steps.
-4. Prints the kernels as one JSON line, the card's name and power limit,
+5. Prints the kernels as one JSON line, the card's name and power limit,
    and as its last line {"ok": true, "device": {...}}.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -40,6 +51,7 @@ import torch  # noqa: E402
 # H100 SXM, NVIDIA data sheet (dense): HBM rate and peak rates by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_INT8_OPS = 1979e12
 L2_BYTES = 50 * 2 ** 20
 
 # Serving shapes: 8 slots of 2048 positions; llama3.2-1b has 32 query and
@@ -62,6 +74,13 @@ WKV6_PREFILL_T = (1024, 777)
 # of 4.3), argmax all equal.  Held to 5% for both models.
 LOGITS_REL_TOL = 5e-2
 PROFILE_STEPS = 4
+# Table-I kernels (rtol, atol): float32 as tests/test_kernels.py holds the
+# Pallas kernels; a bf16 output may land one bf16 step (2^-7 relative)
+# from the plain version's, both rounding a float32 sum once.  Weights are
+# drawn at 1/sqrt(fan-in), as a model's are, so sums are of order one.
+TABLE1_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-4)}
+GEMM_DECODE_M = 8
+GEMM_RAGGED = (1000, 2000, 777)
 
 
 def card_line() -> str:
@@ -72,45 +91,13 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def _events():
-    return (torch.cuda.Event(enable_timing=True),
-            torch.cuda.Event(enable_timing=True))
-
-
-def sleep_cycles_per_ms() -> float:
-    """Rate of ``torch.cuda._sleep``, which spins the card for a number of
-    clock cycles."""
-    start, end = _events()
-    torch.cuda._sleep(1000)
-    start.record()
-    torch.cuda._sleep(10 ** 7)
-    end.record()
-    end.synchronize()
-    return 1e7 / start.elapsed_time(end)
-
-
-def time_ms(calls, iters: int, cycles_per_ms: float):
-    """(device ms, host ms) per call, cycling through ``calls``, which work
-    on distinct buffers so that L2 holds none of them.  Device time is
-    taken with CUDA events while a spin kernel queued first keeps the card
-    busy until every timed call is queued, so the events see the calls
-    back to back and not the host's launch rate."""
-    for c in calls:
-        c()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for c in calls:
-        c()
-    host_ms = (time.perf_counter() - t0) * 1e3 / len(calls)
-    torch.cuda.synchronize()
-    start, end = _events()
-    torch.cuda._sleep(int(cycles_per_ms * (2 * iters * host_ms + 1)))
-    start.record()
-    for i in range(iters):
-        calls[i % len(calls)]()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters, host_ms
+def roofline(nbytes: float, ops: float, rate: float):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over ``rate``."""
+    t_mem = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / rate
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
+                                     else "operations")
 
 
 def decode_attn_bound(lengths, dtype):
@@ -118,11 +105,7 @@ def decode_attn_bound(lengths, dtype):
     output written; 4 flops per (query head, cached element)."""
     n = int(sum(lengths))
     nbytes = (2 * HKV * n * D + 2 * B * H * D) * dtype.itemsize + 4 * B
-    flops = 4 * H * n * D
-    t_mem = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
-                                     else "operations")
+    return roofline(nbytes, 4 * H * n * D, PEAK_FLOPS[dtype])
 
 
 def wkv6_bound(B, T, H, D, dtype, with_state0: bool):
@@ -132,11 +115,7 @@ def wkv6_bound(B, T, H, D, dtype, with_state0: bool):
     n = B * T * H * D
     nbytes = 5 * n * dtype.itemsize + 4 * H * D + \
         (2 if with_state0 else 1) * 4 * B * H * D * D
-    flops = 7 * B * H * T * D * D
-    t_mem = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[torch.float32]
-    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
-                                     else "operations")
+    return roofline(nbytes, 7 * B * H * T * D * D, PEAK_FLOPS[torch.float32])
 
 
 def phase_build():
@@ -155,6 +134,7 @@ def phase_build():
 def phase_decode_attn_check(card: str):
     """decode_attn against its plain version at the serving shapes."""
     import torch.nn.functional as F
+    from repro_torch.bench import sleep_cycles_per_ms, time_ms
     from repro_torch.kernels.decode_attn.ops import decode_attn
     from repro_torch.kernels.decode_attn.ref import decode_attn_ref
 
@@ -228,6 +208,7 @@ def phase_wkv6_check(card: str):
     """wkv6 against its plain version at rwkv6-1.6b's serving shapes: the
     decode step (B=8, T=1) from a nonzero state, and batch-1 prefills from
     zeros, whole and in two halves with the carried state."""
+    from repro_torch.bench import sleep_cycles_per_ms, time_ms
     from repro_torch.kernels.wkv6.ops import wkv6
     from repro_torch.kernels.wkv6.ref import wkv6_ref
 
@@ -310,6 +291,257 @@ def phase_wkv6_check(card: str):
                     bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
             del bufs
     return entry
+
+
+def _copies(nbytes: int) -> int:
+    """Buffers to cycle through so that L2 holds none of them."""
+    return max(2, math.ceil(2 * L2_BYTES / nbytes))
+
+
+def _held(label: str, got, want, tol) -> float:
+    """Max |got - want|; raises unless within (rtol, atol) ``tol``, or
+    equal bit for bit when ``tol`` is None."""
+    err = (got.float() - want.float()).abs().max().item()
+    ok = torch.equal(got, want) if tol is None else bool(torch.allclose(
+        got.float(), want.float(), rtol=tol[0], atol=tol[1]))
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain version: "
+                             f"max_abs_err {err}" + (" (must be bit-equal)"
+                                                     if tol is None else ""))
+    return err
+
+
+def _int_mm(a, b):
+    """torch._int_mm on the card in the first layout of b it accepts (as
+    given, or column-major), or None."""
+    for bb in (b, b.t().contiguous().t()):
+        try:
+            torch._int_mm(a, bb)
+            torch.cuda.synchronize()
+            return lambda a=a, bb=bb: torch._int_mm(a, bb)
+        except RuntimeError:
+            continue
+    return None
+
+
+def phase_table1_kernels(card: str):
+    """gemm_os, conv2d_os and qgemm_int8 against their plain versions at
+    full size, timed beside their bounds and the closest PyTorch call;
+    then the kernel path's entry point, bench_kernel_micro: every row's
+    own inputs held against the plain versions, and each kernel's
+    launches held to the calls its rows made.  Returns (entries of the
+    kernels line, launches on the kernel path)."""
+    import torch.nn.functional as F
+    from repro_torch.bench import (OPS, SHAPES, bench_kernel_micro,
+                                   micro_cases, sleep_cycles_per_ms,
+                                   time_ms)
+    from repro_torch.kernels.conv2d_os.ops import conv2d_os
+    from repro_torch.kernels.conv2d_os.ref import conv2d_ref
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+    from repro_torch.kernels.gemm_os.ops import gemm_os
+    from repro_torch.kernels.gemm_os.ref import gemm_ref
+    from repro_torch.kernels.qgemm_int8.ops import qgemm_int8
+    from repro_torch.kernels.qgemm_int8.ref import (int_matmul_ref,
+                                                    qgemm_ref,
+                                                    quantize_rowwise)
+
+    cyc = sleep_cycles_per_ms()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def randn(shape, dtype, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device="cuda")
+                ).to(dtype)
+
+    entries = []
+    M, K, N = SHAPES["gemm"]
+
+    # gemm_os at the ffn_in site; the bf16 prefill is the kernels line's
+    for label, m, dtype in (("prefill", M, torch.bfloat16),
+                            ("prefill", M, torch.float32),
+                            ("decode", GEMM_DECODE_M, torch.bfloat16)):
+        isz = dtype.itemsize
+        nbytes = (m * K + K * N + m * N) * isz
+        bufs = [(randn((m, K), dtype), randn((K, N), dtype, K ** -0.5))
+                for _ in range(_copies(nbytes))]
+        a, b = bufs[0]
+        got = gemm_os(a, b)
+        flat = gemm_os(a, b, coalesce_grid=True)
+        torch.cuda.synchronize()
+        err = _held(f"gemm_os {label} {dtype}", got, gemm_ref(a, b),
+                    TABLE1_TOL[dtype])
+        _held(f"gemm_os {label} {dtype} 1-D tile grid", flat, got, None)
+        checks = ""
+        if label == "prefill" and dtype == torch.float32:
+            bias = randn((N,), torch.float32)
+            for act in ("silu", "gelu"):
+                e = _held(f"gemm_os bias+{act}",
+                          gemm_os(a, b, bias, activation=act),
+                          gemm_ref(a, b, bias, act), TABLE1_TOL[dtype])
+                checks += f"; bias+{act} max_abs_err {e:.3e}"
+        ms, host_ms = time_ms([lambda a=a, b=b: gemm_os(a, b)
+                               for a, b in bufs], 10, cyc)
+        plain_ms, _ = time_ms([lambda a=a, b=b: gemm_ref(a, b)
+                               for a, b in bufs], 10, cyc)
+        library_ms, _ = time_ms([lambda a=a, b=b: torch.matmul(a, b)
+                                 for a, b in bufs], 50, cyc)
+        bound_ms, bound_by = roofline(nbytes, 2 * m * N * K,
+                                      PEAK_FLOPS[dtype])
+        print(f"[gemm_os] {str(dtype)[6:]} {label} M={m} K={K} N={N}: "
+              f"max_abs_err {err:.3e} (tol rtol {TABLE1_TOL[dtype][0]:.2e} "
+              f"atol {TABLE1_TOL[dtype][1]:.0e}), 1-D grid bit-equal"
+              f"{checks}; kernel {ms:.5f} ms (host {host_ms:.5f} ms per "
+              f"call), plain {plain_ms:.5f} ms, torch.matmul "
+              f"{library_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
+              f"{100 * bound_ms / ms:.1f}% of bound [{card}]")
+        if label == "prefill" and dtype == torch.bfloat16:
+            entries.append(dict(
+                name="gemm_os", route="cuda",
+                source="src/repro_torch/csrc/gemm_os.cu",
+                replaces="src/repro/kernels/gemm_os/kernel.py:71",
+                shape=f"M={m} K={K} N={N} bf16, llama3.2-1b ffn_in prefill",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+        del bufs
+    for dtype in (torch.float32, torch.bfloat16):
+        rm, rk, rn = GEMM_RAGGED
+        a, b = randn((rm, rk), dtype), randn((rk, rn), dtype, rk ** -0.5)
+        got = gemm_os(a, b)
+        flat = gemm_os(a, b, coalesce_grid=True)
+        torch.cuda.synchronize()
+        err = _held(f"gemm_os ragged {dtype}", got, gemm_ref(a, b),
+                    TABLE1_TOL[dtype])
+        _held(f"gemm_os ragged {dtype} 1-D tile grid", flat, got, None)
+        print(f"[gemm_os] {str(dtype)[6:]} ragged M={rm} K={rk} N={rn}: "
+              f"max_abs_err {err:.3e}, 1-D grid bit-equal")
+
+    # conv2d_os: Table-I CONV as a batched edge layer; the bf16 one is the
+    # kernels line's.  Then Listing 2 as written (one image, Cin = 1).
+    n, H, W, Cin, Cout, KS = SHAPES["conv"]
+    OH, OW = H - KS + 1, W - KS + 1
+    for dtype in (torch.bfloat16, torch.float32):
+        isz = dtype.itemsize
+        nbytes = (n * H * W * Cin + KS * KS * Cin * Cout
+                  + n * OH * OW * Cout) * isz
+        bufs = [(randn((n, H, W, Cin), dtype),
+                 randn((KS, KS, Cin, Cout), dtype, (KS * KS * Cin) ** -0.5))
+                for _ in range(_copies(nbytes))]
+        x, w = bufs[0]
+        got = conv2d_os(x, w)
+        torch.cuda.synchronize()
+        err = _held(f"conv2d_os {dtype}", got, conv2d_ref(x, w),
+                    TABLE1_TOL[dtype])
+        # cuDNN on the same NHWC memory, viewed as channels-last NCHW
+        lib = [(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)) for x, w in bufs]
+        ms, host_ms = time_ms([lambda x=x, w=w: conv2d_os(x, w)
+                               for x, w in bufs], 20, cyc)
+        plain_ms, _ = time_ms([lambda x=x, w=w: conv2d_ref(x, w)
+                               for x, w in bufs], 5, cyc)
+        library_ms, _ = time_ms([lambda x=x, w=w: F.conv2d(x, w)
+                                 for x, w in lib], 50, cyc)
+        bound_ms, bound_by = roofline(
+            nbytes, 2 * n * OH * OW * Cout * KS * KS * Cin, PEAK_FLOPS[dtype])
+        print(f"[conv2d_os] {str(dtype)[6:]} N={n} H=W={H} Cin={Cin} "
+              f"Cout={Cout} {KS}x{KS}: max_abs_err {err:.3e} (tol rtol "
+              f"{TABLE1_TOL[dtype][0]:.2e} atol {TABLE1_TOL[dtype][1]:.0e}); "
+              f"kernel {ms:.5f} ms (host {host_ms:.5f} ms per call), plain "
+              f"{plain_ms:.5f} ms, F.conv2d {library_ms:.5f} ms, bound "
+              f"{bound_ms:.5f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% "
+              f"of bound [{card}]")
+        if dtype == torch.bfloat16:
+            entries.append(dict(
+                name="conv2d_os", route="cuda",
+                source="src/repro_torch/csrc/conv2d_os.cu",
+                replaces="src/repro/kernels/conv2d_os/kernel.py:37",
+                shape=f"N={n} H=W={H} Cin={Cin} Cout={Cout} {KS}x{KS} bf16, "
+                      f"Table-I CONV batched",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+        del bufs, lib
+    x, w = randn((1, H, W, 1), torch.float32), randn((KS, KS, 1, Cout),
+                                                     torch.float32)
+    got = conv2d_os(x, w)
+    torch.cuda.synchronize()
+    err = _held("conv2d_os Cin=1", got, conv2d_ref(x, w),
+                TABLE1_TOL[torch.float32])
+    print(f"[conv2d_os] float32 Listing 2: N=1 H=W={H} Cin=1 Cout={Cout}: "
+          f"max_abs_err {err:.3e}")
+
+    # qgemm_int8 at the ffn_in site, bit for bit
+    nbytes = M * K + K * N + 4 * (M + N) + 4 * M * N
+    bufs = []
+    for _ in range(_copies(nbytes)):
+        qa, sa = quantize_rowwise(randn((M, K), torch.float32))
+        qb, sb = quantize_rowwise(randn((N, K), torch.float32))
+        bufs.append((qa, qb.t().contiguous(), sa, sb))
+    qa, qb, sa, sb = bufs[0]
+    got = qgemm_int8(qa, qb, sa, sb)
+    ones = qgemm_int8(qa, qb, torch.ones_like(sa), torch.ones_like(sb))
+    torch.cuda.synchronize()
+    err = _held("qgemm_int8", got, qgemm_ref(qa, qb, sa, sb), None)
+    acc = int_matmul_ref(qa, qb)
+    if acc.abs().max().item() >= 2 ** 24:
+        raise AssertionError("accumulator past 2^24: unit scales cannot "
+                             "show it exactly in float32")
+    _held("qgemm_int8 int32 accumulator", ones, acc.float(), None)
+    ms, host_ms = time_ms([lambda b=b: qgemm_int8(*b) for b in bufs], 20,
+                          cyc)
+    plain_ms, _ = time_ms([lambda b=b: qgemm_ref(*b) for b in bufs], 5, cyc)
+    int_mm = [_int_mm(b[0], b[1]) for b in bufs]
+    library_ms = None if None in int_mm else time_ms(int_mm, 50, cyc)[0]
+    bound_ms, bound_by = roofline(nbytes, 2 * M * N * K, PEAK_INT8_OPS)
+    print(f"[qgemm_int8] M={M} K={K} N={N}: output and int32 accumulator "
+          f"bit-equal to the plain version's; kernel {ms:.5f} ms (host "
+          f"{host_ms:.5f} ms per call), plain {plain_ms:.5f} ms, "
+          f"torch._int_mm (int32 product only) "
+          f"{'not accepted' if library_ms is None else f'{library_ms:.5f} ms'}"
+          f", bound {bound_ms:.5f} ms ({bound_by}), "
+          f"{100 * bound_ms / ms:.1f}% of bound [{card}]")
+    entries.append(dict(
+        name="qgemm_int8", route="cuda",
+        source="src/repro_torch/csrc/qgemm_int8.cu",
+        replaces="src/repro/kernels/qgemm_int8/kernel.py:40",
+        shape=f"M={M} K={K} N={N} int8, llama3.2-1b ffn_in prefill",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms))
+    del bufs
+
+    # The kernel path's entry point.  Its rows' inputs come from one seed:
+    # each row's kernel is first held against its plain version on the
+    # very inputs the row then times.
+    plain = {"gemm_os": gemm_ref, "decode_attn": decode_attn_ref,
+             "conv2d_os": conv2d_ref, "qgemm_int8": qgemm_ref}
+    for name, op, args, _ in micro_cases(torch.device("cuda")):
+        got = OPS[op](*args)
+        torch.cuda.synchronize()
+        dtype = args[0].dtype
+        if op == "qgemm_int8":
+            tol = None
+        elif op == "decode_attn":
+            tol = (KERNEL_TOL[dtype],) * 2
+        else:
+            tol = TABLE1_TOL[dtype]
+        err = _held(f"{name} row", got, plain[op](*args), tol)
+        print(f"[bench] {name}: {op} on the row's inputs "
+              f"{[tuple(a.shape) for a in args]} {str(dtype)[6:]}, "
+              f"max_abs_err {err:.3e} (tol "
+              f"{'bit-equal' if tol is None else tol})")
+    torch.cuda.synchronize()
+    for op in OPS.values():
+        op.launches = 0
+    rows = bench_kernel_micro()
+    torch.cuda.synchronize()
+    launches = {name: op.launches for name, op in OPS.items()}
+    calls = dict.fromkeys(OPS, 0)
+    for r in rows:
+        calls[r["derived"]["kernel"]] += r["derived"]["calls"]
+        print(f"[bench] {r['name']}: {r['us']} us {json.dumps(r['derived'])}"
+              f" [{card}]")
+    if launches != calls:
+        raise AssertionError(f"kernel path launches {launches}, its rows "
+                             f"called {calls}")
+    print(f"[bench] launches on the kernel path: {launches}")
+    return entries, {e["name"]: launches[e["name"]] for e in entries}
 
 
 def _serve_spec(arch: str):
@@ -479,9 +711,11 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}"
           f", CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     phase_build()
     entries = [phase_decode_attn_check(card), phase_wkv6_check(card)]
-    launches = {}
+    table1, launches = phase_table1_kernels(card)
+    entries += table1
     for arch in ("llama3.2-1b", "rwkv6-1.6b"):
         launches.update(phase_serve(card, arch))
         torch.cuda.empty_cache()

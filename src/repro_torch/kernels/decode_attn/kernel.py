@@ -13,7 +13,7 @@ import functools
 import torch
 
 from .. import _build
-from ..common import cdiv
+from ..common import cdiv, check_on_card
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
@@ -67,12 +67,7 @@ def decode_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lengths.shape != (B,):
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}, lengths {tuple(lengths.shape)}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
-        if t.device != q.device or t.device.type != "cuda":
-            raise ValueError(f"{name} is on {t.device}; all inputs must be "
-                             f"on one CUDA device")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    check_on_card([("q", q), ("k", k), ("v", v), ("lengths", lengths)])
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:     # the kernel reads 16-byte vectors
             raise ValueError(f"{name} must be 16-byte aligned")

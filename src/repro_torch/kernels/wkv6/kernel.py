@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from .. import _build
+from ..common import check_on_card
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
@@ -55,12 +56,8 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     named = [("r", r), ("k", k), ("v", v), ("w", w), ("u", u)]
     if state0 is not None:
         named.append(("state0", state0))
+    check_on_card(named)
     for name, t in named:
-        if t.device != r.device or t.device.type != "cuda":
-            raise ValueError(f"{name} is on {t.device}; all inputs must be "
-                             f"on one CUDA device")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:     # the kernel reads 16-byte vectors
             raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty_like(r)

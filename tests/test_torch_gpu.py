@@ -9,8 +9,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.conv2d_os.ops import conv2d_os
+from repro_torch.kernels.conv2d_os.ref import conv2d_ref
 from repro_torch.kernels.decode_attn.ops import decode_attn
 from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+from repro_torch.kernels.gemm_os.ops import gemm_os
+from repro_torch.kernels.gemm_os.ref import gemm_ref
+from repro_torch.kernels.qgemm_int8.ops import qgemm_int8
+from repro_torch.kernels.qgemm_int8.ref import (int_matmul_ref, qgemm_ref,
+                                                quantize_rowwise)
 from repro_torch.kernels.wkv6.ops import wkv6
 from repro_torch.kernels.wkv6.ref import wkv6_ref
 
@@ -194,3 +201,153 @@ def test_rwkv6_smoke_model_on_card_matches_cpu():
         outs.append(([r.out for r in reqs], logits.cpu()))
     assert outs[0][0] == outs[1][0]
     torch.testing.assert_close(outs[1][1], outs[0][1], rtol=1e-4, atol=1e-4)
+
+
+# Table-I kernels.  float32: (rtol, atol) 1e-4, as tests/test_kernels.py
+# holds the Pallas kernels; bf16 output: both round the same float32 sum
+# once, so they may land one bf16 step (2^-7 relative) apart.
+TABLE1_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-4)}
+
+
+def _card(arr, dtype):
+    return torch.from_numpy(np.asarray(arr, np.float32)).to("cuda", dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", [None, "relu", "gelu", "silu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(1000, 2000, 777), (8, 2048, 1000),
+                                   (1, 1, 1), (129, 37, 255)])
+def test_gemm_os_kernel_matches_plain(M, K, N, dtype, act):
+    """Ragged M, N and K (none a multiple of the kernel's tiles, and the
+    one-element product), every epilogue with a bias, float32 and bf16;
+    weights at 1/sqrt(K) so outputs are of order one.  The 1-D tile grid
+    gives the 2-D grid's result bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(M + K + N)
+    a = _card(rng.normal(size=(M, K)), dtype)
+    b = _card(rng.normal(size=(K, N)) / np.sqrt(K), dtype)
+    bias = _card(rng.normal(size=(N,)), torch.float32)
+    before = gemm_os.launches
+    got = gemm_os(a, b, bias, activation=act)
+    flat = gemm_os(a, b, bias, activation=act, coalesce_grid=True)
+    torch.cuda.synchronize()
+    assert gemm_os.launches == before + 2
+    assert got.dtype == dtype and got.shape == (M, N)
+    assert torch.equal(got, flat)
+    rtol, atol = TABLE1_TOL[dtype]
+    torch.testing.assert_close(got.float(),
+                               gemm_ref(a, b, bias, act).float(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_gemm_os_kernel_out_dtype(out_dtype):
+    """bf16 inputs to a float32 output and back, no bias."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(3)
+    a = _card(rng.normal(size=(300, 512)), torch.bfloat16)
+    b = _card(rng.normal(size=(512, 200)) / np.sqrt(512), torch.bfloat16)
+    got = gemm_os(a, b, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype
+    rtol, atol = TABLE1_TOL[out_dtype]
+    torch.testing.assert_close(got.float(),
+                               gemm_ref(a, b, out_dtype=out_dtype).float(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,H,W,Cin,Cout,K", [
+    (1, 66, 66, 1, 64, 3),       # Table-I CONV as Listing 2 writes it
+    (3, 66, 66, 64, 64, 3),      # the batched edge layer, fewer images
+    (2, 21, 35, 13, 72, 3),      # ragged tiles, Cin and Cout
+    (1, 8, 8, 8, 8, 1), (2, 12, 12, 5, 3, 5)])
+def test_conv2d_os_kernel_matches_plain(N, H, W, Cin, Cout, K, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(H * Cin + Cout)
+    x = _card(rng.normal(size=(N, H, W, Cin)), dtype)
+    w = _card(rng.normal(size=(K, K, Cin, Cout)) / np.sqrt(K * K * Cin),
+              dtype)
+    before = conv2d_os.launches
+    got = conv2d_os(x, w)
+    torch.cuda.synchronize()
+    assert conv2d_os.launches == before + 1
+    assert got.dtype == dtype and got.shape == (N, H - K + 1, W - K + 1, Cout)
+    rtol, atol = TABLE1_TOL[dtype]
+    torch.testing.assert_close(got.float(), conv2d_ref(x, w).float(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(1024, 2048, 1000), (100, 96, 56),
+                                   (1000, 2000, 777), (33, 37, 129),
+                                   (1, 1, 1)])
+def test_qgemm_int8_kernel_bit_exact(M, K, N):
+    """Ragged M, N and K, K not a multiple of 4 (the kernel's byte path):
+    the float32 output equals the plain version's bit for bit, and so
+    does, with unit scales, the int32 accumulator (exact in float32 while
+    it stays below 2^24, which these inputs do)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(M + K + N)
+    a, sa = quantize_rowwise(_card(rng.normal(size=(M, K)), torch.float32))
+    bq, sb = quantize_rowwise(_card(rng.normal(size=(N, K)), torch.float32))
+    b = bq.t().contiguous()
+    before = qgemm_int8.launches
+    got = qgemm_int8(a, b, sa, sb)
+    ones = qgemm_int8(a, b, torch.ones_like(sa), torch.ones_like(sb))
+    half = qgemm_int8(a, b, sa, sb, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert qgemm_int8.launches == before + 3
+    assert torch.equal(got, qgemm_ref(a, b, sa, sb))
+    assert torch.equal(half, qgemm_ref(a, b, sa, sb, torch.bfloat16))
+    acc = int_matmul_ref(a, b)
+    assert acc.abs().max().item() < 2 ** 24
+    assert torch.equal(ones, acc.float())
+
+
+@pytest.mark.gpu
+def test_qgemm_int8_kernel_at_k_limit():
+    """At the largest K the wrapper takes, every a and b at -128: the int32
+    accumulator reaches K * 128^2 = 2^31 - 2^14 without wrapping (and is
+    exact in float32, a multiple of 2^14 below 2^31)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.qgemm_int8.kernel import K_MAX
+
+    a = torch.full((2, K_MAX), -128, dtype=torch.int8, device="cuda")
+    b = torch.full((K_MAX, 3), -128, dtype=torch.int8, device="cuda")
+    ones_a = torch.ones(2, device="cuda")
+    ones_b = torch.ones(3, device="cuda")
+    got = qgemm_int8(a, b, ones_a, ones_b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.full((2, 3), float(K_MAX * 128 ** 2),
+                                       device="cuda"))
+    assert torch.equal(got, qgemm_ref(a, b, ones_a, ones_b))
+
+
+@pytest.mark.gpu
+def test_bench_kernel_micro_on_card(monkeypatch):
+    """The kernel path's entry point on the card, at small shapes: every
+    row timed, every op launched as often as its rows say."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch import bench
+
+    monkeypatch.setattr(bench, "SHAPES", dict(gemm=(16, 64, 96),
+                                              conv=(2, 10, 10, 4, 8, 3)))
+    ops = {"gemm_os": gemm_os, "decode_attn": decode_attn,
+           "conv2d_os": conv2d_os, "qgemm_int8": qgemm_int8}
+    before = {k: op.launches for k, op in ops.items()}
+    rows = bench.bench_kernel_micro()
+    calls = {k: 0 for k in ops}
+    for r in rows:
+        assert r["us"] > 0
+        calls[r["derived"]["kernel"]] += r["derived"]["calls"]
+    assert {k: op.launches - before[k] for k, op in ops.items()} == calls

@@ -1,5 +1,6 @@
 """The port stands alone: no module of repro_torch, and not chip_smoke.py,
-imports JAX or the JAX package, and importing the serving engine loads
+imports JAX or the JAX package, and importing the serving engine or the
+kernel path (the Table-I kernels' ops and the micro-benchmark) loads
 neither."""
 import ast
 import os
@@ -31,7 +32,10 @@ def test_no_jax_or_reference_import(path):
 
 def test_engine_import_loads_neither_jax_nor_reference():
     code = ("import sys; import repro_torch.serve.engine, "
-            "repro_torch.serve.traffic, repro_torch.convert; "
+            "repro_torch.serve.traffic, repro_torch.convert, "
+            "repro_torch.kernels.gemm_os.ops, "
+            "repro_torch.kernels.conv2d_os.ops, "
+            "repro_torch.kernels.qgemm_int8.ops, repro_torch.bench; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
