@@ -10,15 +10,20 @@
    WKV6 recurrence at rwkv6-1.6b's decode and prefill shapes.
 3. The Table-I kernels (phase_table1_kernels): gemm_os at llama3.2-1b's
    ffn_in GEMM site (prefill in bf16 and float32, decode in bf16, the
-   fused epilogues, a ragged shape, both tile grids bit for bit),
-   conv2d_os at the paper's Table-I CONV as a batch of 32 edge images
-   (bf16, float32) and as Listing 2 writes it (one input channel), and
-   qgemm_int8 at the ffn_in site, bit for bit; each held against its
-   plain version and timed like the others.  Then holds each row of the
-   kernel path's entry point, repro_torch.bench.bench_kernel_micro, on
-   the row's own inputs against the plain version, drives the entry
-   point, and checks that each kernel launched exactly as often as its
-   rows called it.
+   fused bias+silu and bias+gelu epilogues in both types, a ragged
+   shape, both tile grids bit for bit), conv2d_os at the paper's Table-I
+   CONV as a batch of 32 edge images (bf16, float32) and as Listing 2
+   writes it (one input channel), and qgemm_int8 at the ffn_in site, bit
+   for bit; each held against its plain version and timed like the
+   others.  gemm_os and conv2d_os have two routes each (tensor_core,
+   simt); every case prints the route it ran on, from the ops' per-route
+   launch counts, and fails unless it is the one the route rule gives
+   (bf16 at the full-size shapes on the tensor cores).  Then holds each
+   row of the kernel path's entry point,
+   repro_torch.bench.bench_kernel_micro, on the row's own inputs against
+   the plain version, drives the entry point, and checks that each
+   kernel launched exactly as often as its rows called it, on the routes
+   the rule gives them.
 4. Serves llama3.2-1b and then rwkv6-1.6b at full width and depth (random
    weights from a seed) through the port's Engine: 12 requests over 8
    slots each, so slots are reused, and checks that the model's kernel
@@ -311,6 +316,36 @@ def _held(label: str, got, want, tol) -> float:
     return err
 
 
+def _simt_gemm(a, b):
+    """a @ b on the SIMT route's C entry, whatever the rule would choose:
+    in bfloat16 the kernel the tensor-core route replaced, run here as the
+    redesign's "before".  bf16 output, no bias, 2-D grid."""
+    from repro_torch.kernels.gemm_os.kernel import _entries
+    (M, K), N = a.shape, b.shape[1]
+    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    err = _entries()[0](a.data_ptr(), b.data_ptr(), None, out.data_ptr(), M,
+                        N, K, 1, 1, 0, 0,
+                        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"SIMT gemm_os launch failed: CUDA error {err}")
+    return out
+
+
+def _simt_conv(x, w):
+    """As _simt_gemm, for conv2d_os's SIMT route on bfloat16 x, w."""
+    from repro_torch.kernels.conv2d_os.kernel import _entries
+    N, H, W, Cin = x.shape
+    KH, KW, _, Cout = w.shape
+    out = torch.empty((N, H - KH + 1, W - KW + 1, Cout), dtype=x.dtype,
+                      device=x.device)
+    err = _entries()[0](x.data_ptr(), w.data_ptr(), out.data_ptr(), N, H, W,
+                        Cin, Cout, KH, KW, 1, 1,
+                        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"SIMT conv2d_os launch failed: CUDA error {err}")
+    return out
+
+
 def _int_mm(a, b):
     """torch._int_mm on the card in the first layout of b it accepts (as
     given, or column-major), or None."""
@@ -335,9 +370,11 @@ def phase_table1_kernels(card: str):
     from repro_torch.bench import (OPS, SHAPES, bench_kernel_micro,
                                    micro_cases, sleep_cycles_per_ms,
                                    time_ms)
+    from repro_torch.kernels.conv2d_os.kernel import route as conv_route
     from repro_torch.kernels.conv2d_os.ops import conv2d_os
     from repro_torch.kernels.conv2d_os.ref import conv2d_ref
     from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+    from repro_torch.kernels.gemm_os.kernel import route as gemm_route
     from repro_torch.kernels.gemm_os.ops import gemm_os
     from repro_torch.kernels.gemm_os.ref import gemm_ref
     from repro_torch.kernels.qgemm_int8.ops import qgemm_int8
@@ -355,10 +392,25 @@ def phase_table1_kernels(card: str):
     entries = []
     M, K, N = SHAPES["gemm"]
 
-    # gemm_os at the ffn_in site; the bf16 prefill is the kernels line's
-    for label, m, dtype in (("prefill", M, torch.bfloat16),
-                            ("prefill", M, torch.float32),
-                            ("decode", GEMM_DECODE_M, torch.bfloat16)):
+    def ran_on(op, want: str, label: str) -> str:
+        """Raises unless every launch of ``op`` since its route counts were
+        last zeroed ran on the ``want`` route; zeroes them again."""
+        counts = dict(op.launches_by_route)
+        op.launches_by_route.update(dict.fromkeys(counts, 0))
+        if {r for r, c in counts.items() if c} != {want}:
+            raise AssertionError(f"{label} ran on {counts}, not only on "
+                                 f"the {want} route")
+        return want
+
+    # gemm_os at the ffn_in site; the bf16 prefill is the kernels line's.
+    # The bf16 cases take the tensor-core route, float32 the SIMT one; each
+    # case's checks run on the route it asserts, then it is timed.
+    gemm_os.launches_by_route.update(dict.fromkeys(gemm_os.launches_by_route,
+                                                   0))
+    for label, m, dtype, want in (
+            ("prefill", M, torch.bfloat16, "tensor_core"),
+            ("prefill", M, torch.float32, "simt"),
+            ("decode", GEMM_DECODE_M, torch.bfloat16, "tensor_core")):
         isz = dtype.itemsize
         nbytes = (m * K + K * N + m * N) * isz
         bufs = [(randn((m, K), dtype), randn((K, N), dtype, K ** -0.5))
@@ -371,36 +423,51 @@ def phase_table1_kernels(card: str):
                     TABLE1_TOL[dtype])
         _held(f"gemm_os {label} {dtype} 1-D tile grid", flat, got, None)
         checks = ""
-        if label == "prefill" and dtype == torch.float32:
+        if label == "prefill":     # the epilogue on the route's fragments
             bias = randn((N,), torch.float32)
             for act in ("silu", "gelu"):
-                e = _held(f"gemm_os bias+{act}",
+                e = _held(f"gemm_os {dtype} bias+{act}",
                           gemm_os(a, b, bias, activation=act),
                           gemm_ref(a, b, bias, act), TABLE1_TOL[dtype])
                 checks += f"; bias+{act} max_abs_err {e:.3e}"
+        route = ran_on(gemm_os, want, f"gemm_os {label} {dtype}")
         ms, host_ms = time_ms([lambda a=a, b=b: gemm_os(a, b)
                                for a, b in bufs], 10, cyc)
         plain_ms, _ = time_ms([lambda a=a, b=b: gemm_ref(a, b)
                                for a, b in bufs], 10, cyc)
         library_ms, _ = time_ms([lambda a=a, b=b: torch.matmul(a, b)
                                  for a, b in bufs], 50, cyc)
+        ran_on(gemm_os, want, f"gemm_os {label} {dtype} timed")
+        prev = ""
+        if dtype == torch.bfloat16:   # the SIMT kernel it replaced
+            _held(f"gemm_os {label} {dtype} on the SIMT entry",
+                  _simt_gemm(a, b), gemm_ref(a, b), TABLE1_TOL[dtype])
+            prev_ms, _ = time_ms([lambda a=a, b=b: _simt_gemm(a, b)
+                                  for a, b in bufs], 10, cyc)
+            prev = f", SIMT route {prev_ms:.5f} ms"
         bound_ms, bound_by = roofline(nbytes, 2 * m * N * K,
                                       PEAK_FLOPS[dtype])
-        print(f"[gemm_os] {str(dtype)[6:]} {label} M={m} K={K} N={N}: "
-              f"max_abs_err {err:.3e} (tol rtol {TABLE1_TOL[dtype][0]:.2e} "
-              f"atol {TABLE1_TOL[dtype][1]:.0e}), 1-D grid bit-equal"
-              f"{checks}; kernel {ms:.5f} ms (host {host_ms:.5f} ms per "
-              f"call), plain {plain_ms:.5f} ms, torch.matmul "
-              f"{library_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
+        print(f"[gemm_os] {str(dtype)[6:]} {label} M={m} K={K} N={N} on "
+              f"the {route} route: max_abs_err {err:.3e} (tol rtol "
+              f"{TABLE1_TOL[dtype][0]:.2e} atol {TABLE1_TOL[dtype][1]:.0e}),"
+              f" 1-D grid bit-equal{checks}; kernel {ms:.5f} ms (host "
+              f"{host_ms:.5f} ms per call){prev}, plain {plain_ms:.5f} ms, "
+              f"torch.matmul {library_ms:.5f} ms ({ms / library_ms:.2f}x), "
+              f"bound {bound_ms:.5f} ms ({bound_by}), "
               f"{100 * bound_ms / ms:.1f}% of bound [{card}]")
+        if label == "decode":     # beside the prefill's entry
+            next(e for e in entries if e["name"] == "gemm_os").update(
+                decode_ms=ms, decode_library_ms=library_ms,
+                decode_bound_ms=bound_ms, decode_prev_ms=prev_ms)
         if label == "prefill" and dtype == torch.bfloat16:
             entries.append(dict(
-                name="gemm_os", route="cuda",
+                name="gemm_os", route="cuda", kernel_route=route,
                 source="src/repro_torch/csrc/gemm_os.cu",
                 replaces="src/repro/kernels/gemm_os/kernel.py:71",
                 shape=f"M={m} K={K} N={N} bf16, llama3.2-1b ffn_in prefill",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                prev_ms=prev_ms))
         del bufs
     for dtype in (torch.float32, torch.bfloat16):
         rm, rk, rn = GEMM_RAGGED
@@ -411,14 +478,20 @@ def phase_table1_kernels(card: str):
         err = _held(f"gemm_os ragged {dtype}", got, gemm_ref(a, b),
                     TABLE1_TOL[dtype])
         _held(f"gemm_os ragged {dtype} 1-D tile grid", flat, got, None)
-        print(f"[gemm_os] {str(dtype)[6:]} ragged M={rm} K={rk} N={rn}: "
-              f"max_abs_err {err:.3e}, 1-D grid bit-equal")
+        route = ran_on(gemm_os, gemm_route(rm, rk, rn, dtype).kind,
+                       f"gemm_os ragged {dtype}")
+        print(f"[gemm_os] {str(dtype)[6:]} ragged M={rm} K={rk} N={rn} on "
+              f"the {route} route: max_abs_err {err:.3e}, 1-D grid "
+              f"bit-equal")
 
     # conv2d_os: Table-I CONV as a batched edge layer; the bf16 one is the
     # kernels line's.  Then Listing 2 as written (one image, Cin = 1).
     n, H, W, Cin, Cout, KS = SHAPES["conv"]
     OH, OW = H - KS + 1, W - KS + 1
-    for dtype in (torch.bfloat16, torch.float32):
+    conv2d_os.launches_by_route.update(
+        dict.fromkeys(conv2d_os.launches_by_route, 0))
+    for dtype, want in ((torch.bfloat16, "tensor_core"),
+                        (torch.float32, "simt")):
         isz = dtype.itemsize
         nbytes = (n * H * W * Cin + KS * KS * Cin * Cout
                   + n * OH * OW * Cout) * isz
@@ -430,6 +503,7 @@ def phase_table1_kernels(card: str):
         torch.cuda.synchronize()
         err = _held(f"conv2d_os {dtype}", got, conv2d_ref(x, w),
                     TABLE1_TOL[dtype])
+        route = ran_on(conv2d_os, want, f"conv2d_os {dtype}")
         # cuDNN on the same NHWC memory, viewed as channels-last NCHW
         lib = [(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)) for x, w in bufs]
@@ -439,24 +513,34 @@ def phase_table1_kernels(card: str):
                                for x, w in bufs], 5, cyc)
         library_ms, _ = time_ms([lambda x=x, w=w: F.conv2d(x, w)
                                  for x, w in lib], 50, cyc)
+        ran_on(conv2d_os, want, f"conv2d_os {dtype} timed")
+        prev = ""
+        if dtype == torch.bfloat16:   # the SIMT kernel it replaced
+            _held(f"conv2d_os {dtype} on the SIMT entry", _simt_conv(x, w),
+                  conv2d_ref(x, w), TABLE1_TOL[dtype])
+            prev_ms, _ = time_ms([lambda x=x, w=w: _simt_conv(x, w)
+                                  for x, w in bufs], 20, cyc)
+            prev = f", SIMT route {prev_ms:.5f} ms"
         bound_ms, bound_by = roofline(
             nbytes, 2 * n * OH * OW * Cout * KS * KS * Cin, PEAK_FLOPS[dtype])
         print(f"[conv2d_os] {str(dtype)[6:]} N={n} H=W={H} Cin={Cin} "
-              f"Cout={Cout} {KS}x{KS}: max_abs_err {err:.3e} (tol rtol "
-              f"{TABLE1_TOL[dtype][0]:.2e} atol {TABLE1_TOL[dtype][1]:.0e}); "
-              f"kernel {ms:.5f} ms (host {host_ms:.5f} ms per call), plain "
-              f"{plain_ms:.5f} ms, F.conv2d {library_ms:.5f} ms, bound "
-              f"{bound_ms:.5f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% "
-              f"of bound [{card}]")
+              f"Cout={Cout} {KS}x{KS} on the {route} route: max_abs_err "
+              f"{err:.3e} (tol rtol {TABLE1_TOL[dtype][0]:.2e} atol "
+              f"{TABLE1_TOL[dtype][1]:.0e}); kernel {ms:.5f} ms (host "
+              f"{host_ms:.5f} ms per call){prev}, plain {plain_ms:.5f} ms, "
+              f"F.conv2d {library_ms:.5f} ms ({ms / library_ms:.2f}x), "
+              f"bound {bound_ms:.5f} ms ({bound_by}), "
+              f"{100 * bound_ms / ms:.1f}% of bound [{card}]")
         if dtype == torch.bfloat16:
             entries.append(dict(
-                name="conv2d_os", route="cuda",
+                name="conv2d_os", route="cuda", kernel_route=route,
                 source="src/repro_torch/csrc/conv2d_os.cu",
                 replaces="src/repro/kernels/conv2d_os/kernel.py:37",
                 shape=f"N={n} H=W={H} Cin={Cin} Cout={Cout} {KS}x{KS} bf16, "
                       f"Table-I CONV batched",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                prev_ms=prev_ms))
         del bufs, lib
     x, w = randn((1, H, W, 1), torch.float32), randn((KS, KS, 1, Cout),
                                                      torch.float32)
@@ -464,8 +548,9 @@ def phase_table1_kernels(card: str):
     torch.cuda.synchronize()
     err = _held("conv2d_os Cin=1", got, conv2d_ref(x, w),
                 TABLE1_TOL[torch.float32])
-    print(f"[conv2d_os] float32 Listing 2: N=1 H=W={H} Cin=1 Cout={Cout}: "
-          f"max_abs_err {err:.3e}")
+    route = ran_on(conv2d_os, "simt", "conv2d_os Cin=1")
+    print(f"[conv2d_os] float32 Listing 2: N=1 H=W={H} Cin=1 Cout={Cout} on "
+          f"the {route} route: max_abs_err {err:.3e}")
 
     # qgemm_int8 at the ffn_in site, bit for bit
     nbytes = M * K + K * N + 4 * (M + N) + 4 * M * N
@@ -511,10 +596,17 @@ def phase_table1_kernels(card: str):
     # very inputs the row then times.
     plain = {"gemm_os": gemm_ref, "decode_attn": decode_attn_ref,
              "conv2d_os": conv2d_ref, "qgemm_int8": qgemm_ref}
+    row_route = {}    # row name -> the route the rule gives its inputs
     for name, op, args, _ in micro_cases(torch.device("cuda")):
         got = OPS[op](*args)
         torch.cuda.synchronize()
         dtype = args[0].dtype
+        if op == "gemm_os":
+            (m, k), n = args[0].shape, args[1].shape[1]
+            row_route[name] = gemm_route(m, k, n, dtype).kind
+        elif op == "conv2d_os":
+            kh, kw, ci, co = args[1].shape
+            row_route[name] = conv_route(ci, co, kh, kw, dtype).kind
         if op == "qgemm_int8":
             tol = None
         elif op == "decode_attn":
@@ -527,20 +619,36 @@ def phase_table1_kernels(card: str):
               f"max_abs_err {err:.3e} (tol "
               f"{'bit-equal' if tol is None else tol})")
     torch.cuda.synchronize()
+    routed = {"gemm_os": gemm_os, "conv2d_os": conv2d_os}
     for op in OPS.values():
         op.launches = 0
+    for op in routed.values():
+        op.launches_by_route.update(dict.fromkeys(op.launches_by_route, 0))
     rows = bench_kernel_micro()
     torch.cuda.synchronize()
     launches = {name: op.launches for name, op in OPS.items()}
+    by_route = {name: dict(op.launches_by_route)
+                for name, op in routed.items()}
     calls = dict.fromkeys(OPS, 0)
+    want_by_route = {name: dict.fromkeys(op.launches_by_route, 0)
+                     for name, op in routed.items()}
     for r in rows:
-        calls[r["derived"]["kernel"]] += r["derived"]["calls"]
-        print(f"[bench] {r['name']}: {r['us']} us {json.dumps(r['derived'])}"
+        d = r["derived"]
+        calls[d["kernel"]] += d["calls"]
+        if r["name"] in row_route:
+            want_by_route[d["kernel"]][row_route[r["name"]]] += d["calls"]
+        print(f"[bench] {r['name']}: {r['us']} us {json.dumps(d)}"
               f" [{card}]")
     if launches != calls:
         raise AssertionError(f"kernel path launches {launches}, its rows "
                              f"called {calls}")
-    print(f"[bench] launches on the kernel path: {launches}")
+    if by_route != want_by_route or \
+            by_route["gemm_os"]["tensor_core"] == 0 or \
+            by_route["conv2d_os"]["tensor_core"] == 0:
+        raise AssertionError(f"kernel path launches by route {by_route}, "
+                             f"its rows' routes {want_by_route}")
+    print(f"[bench] launches on the kernel path: {launches}; by route "
+          f"{by_route}")
     return entries, {e["name"]: launches[e["name"]] for e in entries}
 
 

@@ -2,7 +2,9 @@
 Hopper kernel on CUDA tensors, the plain PyTorch version on CPU tensors.
 
 ``conv2d_os.launches`` counts the kernel's launches, so a run can show
-that its path went through the kernel.
+that its path went through the kernel, and ``conv2d_os.launches_by_route``
+the launches of each route (``kernel.route``: ``tensor_core`` or
+``simt``).
 """
 from __future__ import annotations
 
@@ -10,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from .kernel import conv2d_os_cuda
+from .kernel import ROUTES, conv2d_os_cuda
 from .ref import conv2d_ref
 
 
@@ -22,16 +24,19 @@ def conv2d_os(x: torch.Tensor, w: torch.Tensor, *,
     The JAX function's ``bco`` (the TPU's output-channel block, which its
     wrapper pads Cout to), ``interpret`` and ``use_kernel`` are dropped:
     the Hopper kernel has its own tiles and masks a ragged Cout, and the
-    tensor's device chooses kernel or plain version."""
+    tensor's device chooses kernel or plain version.  On the card
+    ``kernel.route`` chooses the kernel from the shape."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return conv2d_ref(x, w, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"conv2d_os runs on CPU or CUDA tensors, not "
                          f"{x.device}")
-    out = conv2d_os_cuda(x, w, out_dtype=out_dtype)
+    out, r = conv2d_os_cuda(x, w, out_dtype=out_dtype)
     conv2d_os.launches += 1
+    conv2d_os.launches_by_route[r.kind] += 1
     return out
 
 
 conv2d_os.launches = 0
+conv2d_os.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -14,6 +14,7 @@ import torch
 
 from repro.kernels.conv2d_os.ops import conv2d_os as jax_conv2d_os
 from repro.kernels.conv2d_os.ref import conv2d_ref as jax_ref
+from repro_torch.kernels.common import cdiv
 from repro_torch.kernels.conv2d_os import kernel as kmod
 from repro_torch.kernels.conv2d_os.kernel import conv2d_os_cuda
 from repro_torch.kernels.conv2d_os.ops import conv2d_os
@@ -101,3 +102,73 @@ def test_conv2d_os_kernel_rejects(change, error, match):
         else {}
     with pytest.raises(error, match=match):
         conv2d_os_cuda(x, w, **kwargs)
+
+
+@pytest.mark.parametrize("K", range(1, 11))
+def test_every_tap_size_up_to_10_fits(K):
+    """Both routes take every square and non-square tap size up to 10 x 10
+    within a block's shared memory, and the tensor-core sum is the
+    source's: 2 patch buffers of (16 + K - 1)^2 pixels at 144 bytes and 2
+    weight stages of 64 rows at 144 bytes (109 KB at 3 x 3)."""
+    for kh, kw in ((K, K), (K, 1), (1, K), (K, 10)):
+        assert kmod.smem_bytes(kh, kw) <= kmod.MAX_SMEM
+        assert kmod.tc_smem_bytes(kh, kw) <= kmod.MAX_SMEM
+    assert kmod.tc_smem_bytes(K, K) == 2 * ((15 + K) ** 2 * 144 + 64 * 144)
+
+
+@pytest.mark.parametrize("Cin,Cout,dtype,aligned,want", [
+    (64, 64, torch.bfloat16, True, "tensor_core"),
+    (32, 96, torch.bfloat16, True, "tensor_core"),
+    (8, 8, torch.bfloat16, True, "tensor_core"),
+    (1, 64, torch.bfloat16, True, "simt"),       # Listing 2
+    (13, 72, torch.bfloat16, True, "simt"),
+    (64, 3, torch.bfloat16, True, "simt"),
+    (64, 64, torch.bfloat16, False, "simt"),
+    (64, 64, torch.float32, True, "simt"),
+])
+def test_conv2d_os_route(Cin, Cout, dtype, aligned, want):
+    """The tensor-core route takes bf16 with Cin and Cout multiples of 8
+    (whole 16-byte cp.async groups) and aligned pointers; float32 and the
+    rest run on SIMT.  Each route's tile and shared memory come with it."""
+    r = kmod.route(Cin, Cout, 3, 3, dtype, aligned)
+    assert r.kind == want
+    if want == "tensor_core":
+        assert (r.tile, r.block_co, r.smem) == ((16, 16), 64,
+                                                kmod.tc_smem_bytes(3, 3))
+    else:
+        assert (r.tile, r.block_co, r.smem) == ((16, 16), 64,
+                                                kmod.smem_bytes(3, 3))
+
+
+@pytest.mark.parametrize("KH,KW,want", [
+    (10, 10, "tensor_core"), (1, 31, "tensor_core"),
+    (1, 32, "simt"), (1, 40, "simt"), (40, 1, "simt"), (1, 87, "simt"),
+])
+def test_conv2d_os_route_wide_taps(KH, KW, want):
+    """Aligned bf16 taps whose tensor-core patch buffers would not fit in
+    shared memory (1 x 32 and wider) go to the SIMT block, which still
+    takes them."""
+    r = kmod.route(64, 64, KH, KW, torch.bfloat16)
+    assert r.kind == want and r.smem <= kmod.MAX_SMEM
+
+
+def test_conv2d_os_route_takes_every_simt_tap():
+    """Every tap size the SIMT block fits (all PR 13's kernel accepted)
+    gets a route whose block fits, for every dtype and alignment."""
+    for kh in range(1, 100):
+        for kw in range(1, 100):
+            if kmod.smem_bytes(kh, kw) > kmod.MAX_SMEM:
+                continue
+            for dtype in (torch.bfloat16, torch.float32):
+                for aligned in (True, False):
+                    r = kmod.route(64, 64, kh, kw, dtype, aligned)
+                    assert r.smem <= kmod.MAX_SMEM, (kh, kw, dtype, r)
+
+
+def test_conv2d_os_main_path_blocks():
+    """The batched Table-I CONV (N 32, 64 x 64 out, 64 channels) launches
+    32 x 4 x 4 = 512 tensor-core blocks, two to an SM."""
+    r = kmod.route(64, 64, 3, 3, torch.bfloat16)
+    (th, tw), bco = r.tile, r.block_co
+    assert 32 * cdiv(64, th) * cdiv(64, tw) * cdiv(64, bco) == 512
+    assert 2 * (r.smem + 1024) <= 233472    # an SM's shared memory

@@ -18,6 +18,8 @@ from hypothesis import given, settings, strategies as st
 
 from repro.kernels.gemm_os.ops import gemm_os as jax_gemm_os
 from repro.kernels.gemm_os.ref import gemm_ref as jax_ref
+from repro_torch.kernels.common import cdiv
+from repro_torch.kernels.gemm_os import kernel as kmod
 from repro_torch.kernels.gemm_os.kernel import gemm_os_cuda
 from repro_torch.kernels.gemm_os.ops import gemm_os
 from repro_torch.kernels.gemm_os.ref import gemm_ref
@@ -139,3 +141,43 @@ def test_gemm_os_kernel_rejects(change, error, match):
     kwargs = {k: change[k] for k in ("out_dtype", "activation") if k in change}
     with pytest.raises(error, match=match):
         gemm_os_cuda(tensors["a"], tensors["b"], tensors["bias"], **kwargs)
+
+
+@pytest.mark.parametrize("M,K,N,dtype,aligned,want", [
+    (1024, 2048, 8192, torch.bfloat16, True, ("tensor_core", 128, 128)),
+    (8, 2048, 8192, torch.bfloat16, True, ("tensor_core", 64, 64)),
+    (64, 512, 384, torch.bfloat16, True, ("tensor_core", 64, 64)),
+    (65, 512, 384, torch.bfloat16, True, ("tensor_core", 128, 128)),
+    (200, 136, 264, torch.bfloat16, True, ("tensor_core", 128, 128)),
+    (8, 2048, 1000, torch.bfloat16, True, ("tensor_core", 64, 64)),
+    (1000, 2000, 777, torch.bfloat16, True, ("simt", 128, 128)),
+    (129, 37, 255, torch.bfloat16, True, ("simt", 128, 128)),
+    (1, 1, 1, torch.bfloat16, True, ("simt", 128, 128)),
+    (1024, 2048, 8192, torch.bfloat16, False, ("simt", 128, 128)),
+    (1024, 2048, 8192, torch.float32, True, ("simt", 128, 128)),
+    (8, 2048, 8192, torch.float32, True, ("simt", 128, 128)),
+])
+def test_gemm_os_route(M, K, N, dtype, aligned, want):
+    """The tensor-core route takes bf16 with K and N multiples of 8 (TMA's
+    16-byte row strides) and aligned pointers, with the 64 x 64 tile up
+    to M 64 and 128 x 128 above; float32 and the rest run on SIMT."""
+    assert tuple(kmod.route(M, K, N, dtype, aligned)) == want
+
+
+@pytest.mark.parametrize("M,blocks", [(8, 128), (1024, 512)])
+def test_gemm_os_tiles_fill_the_card(M, blocks):
+    """At llama3.2-1b's ffn_in site (N 8192) the route's tile gives at
+    least 128 blocks in decode (M 8), one per SM streaming B, and 512 in
+    prefill (M 1024)."""
+    r = kmod.route(M, 2048, 8192, torch.bfloat16)
+    assert cdiv(M, r.block_m) * cdiv(8192, r.block_n) == blocks
+
+
+def test_gemm_os_counts_launches_by_route():
+    """The per-route counter has one entry per route, and CPU calls count
+    in neither."""
+    assert set(gemm_os.launches_by_route) == set(kmod.ROUTES)
+    before = dict(gemm_os.launches_by_route)
+    gemm_os(torch.ones(8, 16, dtype=torch.bfloat16),
+            torch.ones(16, 8, dtype=torch.bfloat16))
+    assert gemm_os.launches_by_route == before

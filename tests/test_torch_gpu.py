@@ -9,10 +9,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.conv2d_os.kernel import route as conv_route
 from repro_torch.kernels.conv2d_os.ops import conv2d_os
 from repro_torch.kernels.conv2d_os.ref import conv2d_ref
 from repro_torch.kernels.decode_attn.ops import decode_attn
 from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+from repro_torch.kernels.gemm_os.kernel import route as gemm_route
 from repro_torch.kernels.gemm_os.ops import gemm_os
 from repro_torch.kernels.gemm_os.ref import gemm_ref
 from repro_torch.kernels.qgemm_int8.ops import qgemm_int8
@@ -222,21 +224,56 @@ def test_gemm_os_kernel_matches_plain(M, K, N, dtype, act):
     """Ragged M, N and K (none a multiple of the kernel's tiles, and the
     one-element product), every epilogue with a bias, float32 and bf16;
     weights at 1/sqrt(K) so outputs are of order one.  The 1-D tile grid
-    gives the 2-D grid's result bit for bit."""
+    gives the 2-D grid's result bit for bit.  Each call runs on the route
+    the rule gives (bf16 8 x 2048 x 1000 on the tensor cores, the others
+    on SIMT)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(M + K + N)
     a = _card(rng.normal(size=(M, K)), dtype)
     b = _card(rng.normal(size=(K, N)) / np.sqrt(K), dtype)
     bias = _card(rng.normal(size=(N,)), torch.float32)
+    kind = gemm_route(M, K, N, dtype).kind
     before = gemm_os.launches
+    before_route = gemm_os.launches_by_route[kind]
     got = gemm_os(a, b, bias, activation=act)
     flat = gemm_os(a, b, bias, activation=act, coalesce_grid=True)
     torch.cuda.synchronize()
     assert gemm_os.launches == before + 2
+    assert gemm_os.launches_by_route[kind] == before_route + 2
     assert got.dtype == dtype and got.shape == (M, N)
     assert torch.equal(got, flat)
     rtol, atol = TABLE1_TOL[dtype]
+    torch.testing.assert_close(got.float(),
+                               gemm_ref(a, b, bias, act).float(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", [None, "relu", "gelu", "silu"])
+@pytest.mark.parametrize("M,K,N", [(1024, 2048, 8192), (64, 512, 384),
+                                   (8, 2048, 8192), (200, 136, 264)])
+def test_gemm_os_tensor_core_matches_plain(M, K, N, act):
+    """The tensor-core route (wgmma fed by TMA) at llama3.2-1b's ffn_in
+    site in prefill and decode, at the largest M of the 64 x 64 tile, and
+    with ragged M and K (136 is not a multiple of the 64-deep stage): every
+    epilogue with a bias, within one bf16 step of the plain version, and
+    the 1-D tile grid bit-equal to the 2-D one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(M + K + N)
+    a = _card(rng.normal(size=(M, K)), torch.bfloat16)
+    b = _card(rng.normal(size=(K, N)) / np.sqrt(K), torch.bfloat16)
+    bias = _card(rng.normal(size=(N,)), torch.float32)
+    assert gemm_route(M, K, N, torch.bfloat16).kind == "tensor_core"
+    before = gemm_os.launches_by_route["tensor_core"]
+    got = gemm_os(a, b, bias, activation=act)
+    flat = gemm_os(a, b, bias, activation=act, coalesce_grid=True)
+    torch.cuda.synchronize()
+    assert gemm_os.launches_by_route["tensor_core"] == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert torch.equal(got, flat)
+    rtol, atol = TABLE1_TOL[torch.bfloat16]
     torch.testing.assert_close(got.float(),
                                gemm_ref(a, b, bias, act).float(),
                                rtol=rtol, atol=atol)
@@ -274,12 +311,74 @@ def test_conv2d_os_kernel_matches_plain(N, H, W, Cin, Cout, K, dtype):
     x = _card(rng.normal(size=(N, H, W, Cin)), dtype)
     w = _card(rng.normal(size=(K, K, Cin, Cout)) / np.sqrt(K * K * Cin),
               dtype)
+    kind = conv_route(Cin, Cout, K, K, dtype).kind
     before = conv2d_os.launches
+    before_route = conv2d_os.launches_by_route[kind]
     got = conv2d_os(x, w)
     torch.cuda.synchronize()
     assert conv2d_os.launches == before + 1
+    assert conv2d_os.launches_by_route[kind] == before_route + 1
     assert got.dtype == dtype and got.shape == (N, H - K + 1, W - K + 1, Cout)
     rtol, atol = TABLE1_TOL[dtype]
+    torch.testing.assert_close(got.float(), conv2d_ref(x, w).float(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,H,W,Cin,Cout,KH,KW", [
+    (32, 66, 66, 64, 64, 3, 3),  # the batched Table-I CONV of the main path
+    (2, 34, 50, 32, 96, 5, 5),   # Cin below one 64-channel chunk
+    (1, 30, 40, 16, 24, 10, 10),  # the largest taps; ragged Cout tile
+    (2, 20, 45, 136, 72, 10, 3),  # non-square taps, Cin over two chunks
+])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_conv2d_os_tensor_core_matches_plain(N, H, W, Cin, Cout, KH, KW,
+                                             out_dtype):
+    """The tensor-core route (implicit GEMM on mma.sync, the patch staged
+    by cp.async) within one bf16 step of the plain version in a bf16
+    output, and within float32 rounding of it in a float32 output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(H * Cin + Cout + KW)
+    x = _card(rng.normal(size=(N, H, W, Cin)), torch.bfloat16)
+    w = _card(rng.normal(size=(KH, KW, Cin, Cout)) / np.sqrt(KH * KW * Cin),
+              torch.bfloat16)
+    assert conv_route(Cin, Cout, KH, KW, torch.bfloat16).kind == "tensor_core"
+    before = conv2d_os.launches_by_route["tensor_core"]
+    got = conv2d_os(x, w, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert conv2d_os.launches_by_route["tensor_core"] == before + 1
+    assert got.dtype == out_dtype and \
+        got.shape == (N, H - KH + 1, W - KW + 1, Cout)
+    rtol, atol = TABLE1_TOL[out_dtype]
+    torch.testing.assert_close(got.float(),
+                               conv2d_ref(x, w, out_dtype).float(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,H,W,KH,KW,want", [
+    (1, 12, 60, 1, 31, "tensor_core"),  # the widest row the patch fits
+    (2, 12, 70, 1, 40, "simt"),          # too wide for the tensor cores
+    (1, 50, 20, 40, 1, "simt"),
+])
+def test_conv2d_os_wide_taps_matches_plain(N, H, W, KH, KW, want):
+    """Aligned bf16 convolutions with wide non-square taps run on the route
+    the rule gives them, within one bf16 step of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    Cin = Cout = 64
+    rng = np.random.default_rng(KH * 100 + KW)
+    x = _card(rng.normal(size=(N, H, W, Cin)), torch.bfloat16)
+    w = _card(rng.normal(size=(KH, KW, Cin, Cout)) / np.sqrt(KH * KW * Cin),
+              torch.bfloat16)
+    assert conv_route(Cin, Cout, KH, KW, torch.bfloat16).kind == want
+    before = conv2d_os.launches_by_route[want]
+    got = conv2d_os(x, w)
+    torch.cuda.synchronize()
+    assert conv2d_os.launches_by_route[want] == before + 1
+    assert got.shape == (N, H - KH + 1, W - KW + 1, Cout)
+    rtol, atol = TABLE1_TOL[torch.bfloat16]
     torch.testing.assert_close(got.float(), conv2d_ref(x, w).float(),
                                rtol=rtol, atol=atol)
 
