@@ -15,22 +15,25 @@
    CONV as a batch of 32 edge images (bf16, float32) and as Listing 2
    writes it (one input channel), and qgemm_int8 at the ffn_in site, bit
    for bit; each held against its plain version and timed like the
-   others.  gemm_os and conv2d_os have two routes each (tensor_core,
-   simt); every case prints the route it ran on, from the ops' per-route
-   launch counts, and fails unless it is the one the route rule gives
-   (bf16 at the full-size shapes on the tensor cores).  Then holds each
-   row of the kernel path's entry point,
+   others.  Then holds each row of the kernel path's entry point,
    repro_torch.bench.bench_kernel_micro, on the row's own inputs against
    the plain version, drives the entry point, and checks that each
    kernel launched exactly as often as its rows called it, on the routes
    the rule gives them.
+   Every kernel but wkv6 has two routes (tensor_core, simt), chosen by
+   its kernel.route; every case of steps 2 and 3 prints the route it ran
+   on, from the ops' per-route launch counts, and fails unless it is the
+   one the rule gives (bf16, and int8, at the full-size shapes on the
+   tensor cores).  Where a case runs on the tensor cores, the SIMT
+   kernel that route replaced is held and timed on the same inputs
+   (prev_ms).  torch._int_mm is timed in every layout of b it accepts.
 4. Serves llama3.2-1b and then rwkv6-1.6b at full width and depth (random
    weights from a seed) through the port's Engine: 12 requests over 8
    slots each, so slots are reused, and checks that the model's kernel
-   ran once per layer in every decode step (decode_attn) or in every
-   decode step and every prefill (wkv6).  Then holds one decode step's
-   logits, kernel-backed, against the same step with the plain version,
-   and profiles a few decode steps.
+   ran once per layer in every decode step (decode_attn, on the tensor
+   cores) or in every decode step and every prefill (wkv6).  Then holds
+   one decode step's logits, kernel-backed, against the same step with
+   the plain version, and profiles a few decode steps.
 5. Prints the kernels as one JSON line, the card's name and power limit,
    and as its last line {"ok": true, "device": {...}}.
 
@@ -136,15 +139,55 @@ def phase_build():
                         or "spill" in ln or "error" in ln))
 
 
+def ran_on(op, want: str, label: str) -> str:
+    """Raises unless every launch of ``op`` since its route counts were last
+    zeroed ran on the ``want`` route; zeroes them again."""
+    counts = dict(op.launches_by_route)
+    op.launches_by_route.update(dict.fromkeys(counts, 0))
+    if {r for r, c in counts.items() if c} != {want}:
+        raise AssertionError(f"{label} ran on {counts}, not only on the "
+                             f"{want} route")
+    return want
+
+
+def _simt_decode_attn(q, k, v, lens):
+    """decode_attn on the SIMT route's C entry, whatever the rule would
+    choose: in bfloat16 the kernel the tensor-core route replaced, run here
+    as the redesign's "before".  q (B, H, D), k/v (B, Hkv, S, D)."""
+    from repro_torch.kernels.decode_attn import kernel as dk
+    Bq, Hq, Dq = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    splits, chunk = dk.split_plan(Bq, Hkv, S, Dq, q.dtype,
+                                  dk._sm_count(q.device.index))
+    out = torch.empty_like(q)
+    n = Bq * Hkv * splits * G
+    part = torch.empty(n * (Dq + 2), dtype=torch.float32, device=q.device)
+    base = part.data_ptr()
+    err = dk._entries()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           lens.data_ptr(), out.data_ptr(), base, base + 4 * n,
+                           base + 8 * n, Bq, Hkv, G, S, Dq, splits, chunk,
+                           1.0 / (Dq ** 0.5), dk._DTYPES[q.dtype],
+                           torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"SIMT decode_attn launch failed: CUDA error {err}")
+    return out
+
+
 def phase_decode_attn_check(card: str):
-    """decode_attn against its plain version at the serving shapes."""
+    """decode_attn against its plain version at the serving shapes, each
+    case on the route the rule gives it (bf16 on the tensor cores, float32
+    on SIMT); in bf16 the SIMT kernel is timed on the same inputs."""
     import torch.nn.functional as F
     from repro_torch.bench import sleep_cycles_per_ms, time_ms
+    from repro_torch.kernels.decode_attn.kernel import route
     from repro_torch.kernels.decode_attn.ops import decode_attn
     from repro_torch.kernels.decode_attn.ref import decode_attn_ref
 
     cyc = sleep_cycles_per_ms()
     entry = None
+    decode_attn.launches_by_route.update(
+        dict.fromkeys(decode_attn.launches_by_route, 0))
     for dtype in (torch.bfloat16, torch.float32):
         for S in (S_MAX, 1000):
             gen = torch.Generator(device="cuda").manual_seed(S)
@@ -169,6 +212,8 @@ def phase_decode_attn_check(card: str):
                 tol = KERNEL_TOL[dtype]
                 ok = bool(torch.allclose(got.float(), want.float(),
                                          rtol=tol, atol=tol))
+                kind = ran_on(decode_attn, route(D, H // HKV, dtype),
+                              f"decode_attn {dtype} S={S} {label}")
                 mask = (torch.arange(S, device="cuda")[None, :]
                         < lens[:, None])[:, None, None, :]
 
@@ -177,34 +222,45 @@ def phase_decode_attn_check(card: str):
                         q.view(B, H, 1, D), k, v, attn_mask=mask,
                         enable_gqa=True)
 
-                ms, host_ms = time_ms([lambda b=b: decode_attn(*b, lens)
-                                       for b in bufs], 200, cyc)
-                plain_ms, _ = time_ms([lambda b=b: decode_attn_ref(*b, lens)
-                                       for b in bufs], 20, cyc)
-                library_ms, _ = time_ms([lambda b=b: library(*b)
-                                         for b in bufs], 50, cyc)
-                bound_ms, bound_by = decode_attn_bound(lens_list, dtype)
-                print(f"[decode_attn] {str(dtype)[6:]} S={S} lengths "
-                      f"{label} {lens_list}: max_abs_err {err:.3e} (tol "
-                      f"{tol}) kernel {ms:.5f} ms (host {host_ms:.5f} ms "
-                      f"per call), plain {plain_ms:.5f} ms, sdpa "
-                      f"{library_ms:.5f} ms, bound {bound_ms:.5f} ms "
-                      f"({bound_by}), {100 * bound_ms / ms:.1f}% of bound "
-                      f"[{card}]")
                 if not ok:
                     raise AssertionError(
                         f"decode_attn disagrees with its plain version: "
                         f"{dtype} S={S} max_abs_err {err}")
+                ms, host_ms = time_ms([lambda b=b: decode_attn(*b, lens)
+                                       for b in bufs], 200, cyc)
+                ran_on(decode_attn, kind, f"decode_attn {dtype} S={S} "
+                                          f"{label} timed")
+                plain_ms, _ = time_ms([lambda b=b: decode_attn_ref(*b, lens)
+                                       for b in bufs], 20, cyc)
+                library_ms, _ = time_ms([lambda b=b: library(*b)
+                                         for b in bufs], 50, cyc)
+                prev = ""
+                if kind == "tensor_core":   # the SIMT kernel it replaced
+                    _held(f"decode_attn {dtype} S={S} {label} on the SIMT "
+                          f"entry", _simt_decode_attn(q, k, v, lens), want,
+                          (tol, tol))
+                    prev_ms, _ = time_ms([lambda b=b: _simt_decode_attn(
+                        *b, lens) for b in bufs], 200, cyc)
+                    prev = f", SIMT route {prev_ms:.5f} ms"
+                bound_ms, bound_by = decode_attn_bound(lens_list, dtype)
+                print(f"[decode_attn] {str(dtype)[6:]} S={S} lengths "
+                      f"{label} {lens_list} on the {kind} route: "
+                      f"max_abs_err {err:.3e} (tol {tol}) kernel {ms:.5f} ms "
+                      f"(host {host_ms:.5f} ms per call){prev}, plain "
+                      f"{plain_ms:.5f} ms, sdpa {library_ms:.5f} ms "
+                      f"({ms / library_ms:.2f}x), bound {bound_ms:.5f} ms "
+                      f"({bound_by}), {100 * bound_ms / ms:.1f}% of bound "
+                      f"[{card}]")
                 if label == "full":
                     entry = dict(
-                        name="decode_attn", route="cuda",
+                        name="decode_attn", route="cuda", kernel_route=kind,
                         source="src/repro_torch/csrc/decode_attn.cu",
                         replaces="src/repro/kernels/decode_attn/kernel.py:60",
                         shape=f"B={B} H={H} Hkv={HKV} D={D} S={S} bf16, "
                               f"every row full",
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bound_ms, bound_by=bound_by,
-                        library_ms=library_ms)
+                        library_ms=library_ms, prev_ms=prev_ms)
             del bufs
     return entry
 
@@ -346,17 +402,23 @@ def _simt_conv(x, w):
     return out
 
 
-def _int_mm(a, b):
-    """torch._int_mm on the card in the first layout of b it accepts (as
-    given, or column-major), or None."""
-    for bb in (b, b.t().contiguous().t()):
-        try:
-            torch._int_mm(a, bb)
-            torch.cuda.synchronize()
-            return lambda a=a, bb=bb: torch._int_mm(a, bb)
-        except RuntimeError:
-            continue
-    return None
+def _simt_qgemm(a, b, sa, sb):
+    """As _simt_gemm, for qgemm_int8's SIMT route (the dp4a kernel), float32
+    output."""
+    from repro_torch.kernels.qgemm_int8.kernel import _entries
+    (M, K), N = a.shape, b.shape[1]
+    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    err = _entries()[0](a.data_ptr(), b.data_ptr(), sa.data_ptr(),
+                        sb.data_ptr(), out.data_ptr(), M, N, K, 0,
+                        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"SIMT qgemm_int8 launch failed: CUDA error {err}")
+    return out
+
+
+# The layouts of torch._int_mm's b, (K, N) int8, that the yardstick tries.
+INT_MM_LAYOUTS = {"row-major (K, N)": lambda b: b,
+                  "column-major (K, N)": lambda b: b.t().contiguous().t()}
 
 
 def phase_table1_kernels(card: str):
@@ -377,6 +439,9 @@ def phase_table1_kernels(card: str):
     from repro_torch.kernels.gemm_os.kernel import route as gemm_route
     from repro_torch.kernels.gemm_os.ops import gemm_os
     from repro_torch.kernels.gemm_os.ref import gemm_ref
+    from repro_torch.kernels.decode_attn.kernel import route as attn_route
+    from repro_torch.kernels.decode_attn.ops import decode_attn
+    from repro_torch.kernels.qgemm_int8.kernel import route as qgemm_route
     from repro_torch.kernels.qgemm_int8.ops import qgemm_int8
     from repro_torch.kernels.qgemm_int8.ref import (int_matmul_ref,
                                                     qgemm_ref,
@@ -391,16 +456,6 @@ def phase_table1_kernels(card: str):
 
     entries = []
     M, K, N = SHAPES["gemm"]
-
-    def ran_on(op, want: str, label: str) -> str:
-        """Raises unless every launch of ``op`` since its route counts were
-        last zeroed ran on the ``want`` route; zeroes them again."""
-        counts = dict(op.launches_by_route)
-        op.launches_by_route.update(dict.fromkeys(counts, 0))
-        if {r for r, c in counts.items() if c} != {want}:
-            raise AssertionError(f"{label} ran on {counts}, not only on "
-                                 f"the {want} route")
-        return want
 
     # gemm_os at the ffn_in site; the bf16 prefill is the kernels line's.
     # The bf16 cases take the tensor-core route, float32 the SIMT one; each
@@ -552,7 +607,8 @@ def phase_table1_kernels(card: str):
     print(f"[conv2d_os] float32 Listing 2: N=1 H=W={H} Cin=1 Cout={Cout} on "
           f"the {route} route: max_abs_err {err:.3e}")
 
-    # qgemm_int8 at the ffn_in site, bit for bit
+    # qgemm_int8 at the ffn_in site, bit for bit, on the tensor cores; the
+    # SIMT (dp4a) kernel it replaced timed on the same inputs
     nbytes = M * K + K * N + 4 * (M + N) + 4 * M * N
     bufs = []
     for _ in range(_copies(nbytes)):
@@ -560,35 +616,61 @@ def phase_table1_kernels(card: str):
         qb, sb = quantize_rowwise(randn((N, K), torch.float32))
         bufs.append((qa, qb.t().contiguous(), sa, sb))
     qa, qb, sa, sb = bufs[0]
+    qgemm_int8.launches_by_route.update(
+        dict.fromkeys(qgemm_int8.launches_by_route, 0))
     got = qgemm_int8(qa, qb, sa, sb)
     ones = qgemm_int8(qa, qb, torch.ones_like(sa), torch.ones_like(sb))
+    half = qgemm_int8(qa, qb, sa, sb, out_dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    err = _held("qgemm_int8", got, qgemm_ref(qa, qb, sa, sb), None)
+    want = qgemm_ref(qa, qb, sa, sb)
+    err = _held("qgemm_int8", got, want, None)
+    _held("qgemm_int8 bf16 output", half,
+          qgemm_ref(qa, qb, sa, sb, torch.bfloat16), None)
     acc = int_matmul_ref(qa, qb)
     if acc.abs().max().item() >= 2 ** 24:
         raise AssertionError("accumulator past 2^24: unit scales cannot "
                              "show it exactly in float32")
     _held("qgemm_int8 int32 accumulator", ones, acc.float(), None)
+    kind = ran_on(qgemm_int8, qgemm_route(M, K, N), "qgemm_int8")
     ms, host_ms = time_ms([lambda b=b: qgemm_int8(*b) for b in bufs], 20,
                           cyc)
+    ran_on(qgemm_int8, kind, "qgemm_int8 timed")
+    _held("qgemm_int8 on the SIMT entry", _simt_qgemm(qa, qb, sa, sb), want,
+          None)
+    prev_ms, _ = time_ms([lambda b=b: _simt_qgemm(*b) for b in bufs], 10,
+                         cyc)
     plain_ms, _ = time_ms([lambda b=b: qgemm_ref(*b) for b in bufs], 5, cyc)
-    int_mm = [_int_mm(b[0], b[1]) for b in bufs]
-    library_ms = None if None in int_mm else time_ms(int_mm, 50, cyc)[0]
+    layouts = {}      # torch._int_mm's time in each layout of b it accepts
+    for name, lay in INT_MM_LAYOUTS.items():
+        pairs = [(b[0], lay(b[1])) for b in bufs]
+        try:
+            torch._int_mm(*pairs[0])
+            torch.cuda.synchronize()
+        except RuntimeError:      # not a layout it takes on this card
+            continue
+        layouts[name] = time_ms([lambda p=p: torch._int_mm(*p)
+                                 for p in pairs], 50, cyc)[0]
+    library_layout = min(layouts, key=layouts.get) if layouts else None
+    library_ms = layouts.get(library_layout)
+    fastest = (f"{library_layout} ({ms / library_ms:.2f}x)" if layouts
+               else "none")
     bound_ms, bound_by = roofline(nbytes, 2 * M * N * K, PEAK_INT8_OPS)
-    print(f"[qgemm_int8] M={M} K={K} N={N}: output and int32 accumulator "
-          f"bit-equal to the plain version's; kernel {ms:.5f} ms (host "
-          f"{host_ms:.5f} ms per call), plain {plain_ms:.5f} ms, "
-          f"torch._int_mm (int32 product only) "
-          f"{'not accepted' if library_ms is None else f'{library_ms:.5f} ms'}"
-          f", bound {bound_ms:.5f} ms ({bound_by}), "
+    print(f"[qgemm_int8] M={M} K={K} N={N} on the {kind} route: output "
+          f"(float32 and bf16) and int32 accumulator bit-equal to the plain "
+          f"version's; kernel {ms:.5f} ms (host {host_ms:.5f} ms per call), "
+          f"SIMT route {prev_ms:.5f} ms ({prev_ms / ms:.2f}x the kernel), "
+          f"plain {plain_ms:.5f} ms, torch._int_mm (int32 product only) by "
+          f"layout of b {json.dumps(layouts)}, fastest {fastest}, "
+          f"bound {bound_ms:.5f} ms ({bound_by}), "
           f"{100 * bound_ms / ms:.1f}% of bound [{card}]")
     entries.append(dict(
-        name="qgemm_int8", route="cuda",
+        name="qgemm_int8", route="cuda", kernel_route=kind,
         source="src/repro_torch/csrc/qgemm_int8.cu",
         replaces="src/repro/kernels/qgemm_int8/kernel.py:40",
         shape=f"M={M} K={K} N={N} int8, llama3.2-1b ffn_in prefill",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=library_ms))
+        bound_by=bound_by, library_ms=library_ms,
+        library_layout=library_layout, prev_ms=prev_ms))
     del bufs
 
     # The kernel path's entry point.  Its rows' inputs come from one seed:
@@ -607,6 +689,12 @@ def phase_table1_kernels(card: str):
         elif op == "conv2d_os":
             kh, kw, ci, co = args[1].shape
             row_route[name] = conv_route(ci, co, kh, kw, dtype).kind
+        elif op == "qgemm_int8":
+            (m, k), n = args[0].shape, args[1].shape[1]
+            row_route[name] = qgemm_route(m, k, n)
+        else:
+            hq, d = args[0].shape[1:]
+            row_route[name] = attn_route(d, hq // args[1].shape[1], dtype)
         if op == "qgemm_int8":
             tol = None
         elif op == "decode_attn":
@@ -619,7 +707,8 @@ def phase_table1_kernels(card: str):
               f"max_abs_err {err:.3e} (tol "
               f"{'bit-equal' if tol is None else tol})")
     torch.cuda.synchronize()
-    routed = {"gemm_os": gemm_os, "conv2d_os": conv2d_os}
+    routed = {"gemm_os": gemm_os, "conv2d_os": conv2d_os,
+              "qgemm_int8": qgemm_int8, "decode_attn": decode_attn}
     for op in OPS.values():
         op.launches = 0
     for op in routed.values():
@@ -642,9 +731,9 @@ def phase_table1_kernels(card: str):
     if launches != calls:
         raise AssertionError(f"kernel path launches {launches}, its rows "
                              f"called {calls}")
-    if by_route != want_by_route or \
-            by_route["gemm_os"]["tensor_core"] == 0 or \
-            by_route["conv2d_os"]["tensor_core"] == 0:
+    if by_route != want_by_route or any(
+            by_route[op]["tensor_core"] == 0
+            for op in ("gemm_os", "conv2d_os", "qgemm_int8")):
         raise AssertionError(f"kernel path launches by route {by_route}, "
                              f"its rows' routes {want_by_route}")
     print(f"[bench] launches on the kernel path: {launches}; by route "
@@ -701,6 +790,8 @@ def phase_serve(card: str, arch: str):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     decode_attn.launches = wkv6.launches = 0
+    decode_attn.launches_by_route.update(
+        dict.fromkeys(decode_attn.launches_by_route, 0))
     while pending or eng.n_active:
         while pending and eng.has_free_slot():
             req = pending.popleft()
@@ -731,6 +822,8 @@ def phase_serve(card: str, arch: str):
                                  f"{len(r.out)}/{r.max_new} tokens")
     how = f"{cfg.n_layers} x {steps}" if not per_prompt else \
         f"{cfg.n_layers} x ({steps} + {N_REQUESTS})"
+    if op is decode_attn:     # bf16 at D 64, G 4: the tensor-core route
+        how += f", {ran_on(decode_attn, 'tensor_core', name)} route"
     print(f"[serve] {N_REQUESTS} requests, {prompt_tokens} prompt tokens, "
           f"{decoded} decoded tokens in {steps} decode steps; {name} "
           f"launches {launches} = {how}")

@@ -1,10 +1,12 @@
 // float32 <-> storage type conversions shared by the Table-I kernels
 // (gemm_os.cu, conv2d_os.cu, qgemm_int8.cu): inputs widen to float32 as
 // they are staged, and each output rounds once, to nearest even.  store2
-// writes two neighbouring outputs of a tensor-core fragment at once.
+// writes two neighbouring outputs of a tensor-core fragment at once,
+// store4 four of a staged output row.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <stdint.h>
 
 namespace repro {
 
@@ -29,6 +31,20 @@ __device__ __forceinline__ void store2(float* p, float x, float y) {
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// (v.x, v.y, v.z, v.w) to p[0..3]; p is aligned to the four (16 bytes for
+// float32, 8 for bfloat16).
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&lo);
+  u.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
 }
 
 }  // namespace repro

@@ -5,31 +5,59 @@
 // Replaces the TPU kernel src/repro/kernels/decode_attn/kernel.py
 // (_decode_kernel, launched by decode_attn_pallas).  Same function:
 // scale 1/sqrt(D), positions >= length masked out, online softmax in
-// float32, denominator clamped at 1e-30, output in q's dtype.
+// float32, denominator clamped at 1e-30, output in q's dtype, a row of
+// length 0 gives zeros.
 //
 // Bound on the card: memory.  The K and V rows a call must read are
 // sum_b 2 * Hkv * len_b * D * sizeof(T) bytes, read once; the arithmetic
 // is 4 * G flops per cached element, far below the H100's ~295 flops/byte
-// ridge.  What the design does about it:
-//   * K/V rows stream from global memory once, each thread pulling one
-//     16-byte vector per row; the positions of a warp are adjacent, so
-//     every load is a full, coalesced 128-byte line.  Rows at or past
-//     len_b are never read.
+// ridge.  On both routes:
 //   * The G query heads that share one KV head (G = H / Hkv) are served
 //     by the same pass over K/V, so K/V are read once per KV head, not
-//     once per query head.
-//   * At decode shapes B * Hkv is a few dozen blocks against 132 SMs, so
-//     the S axis is split across blocks (the TPU ran it as a sequential
-//     grid axis).  Each split writes a partial (max, denominator, sum);
-//     a second small kernel merges them.
+//     once per query head.  Rows at or past len_b are never read.
+//   * At decode shapes B * Hkv is a few dozen (batch, kv-head) pairs
+//     against 132 SMs, so the S axis is split across blocks (the TPU ran
+//     it as a sequential grid axis).  Each split writes a partial (max,
+//     denominator, sum) in float32; a second small kernel merges them.
+//
+// Two routes, chosen by the wrapper from dtype, D, G and the pointers'
+// alignment (kernels/decode_attn/kernel.py: route), one C entry point
+// each, each with its own split plan:
+//
+// repro_decode_attn_tc, the tensor-core route: bfloat16, D 16/32/64/128,
+// G 1/2/4/8, 16-byte aligned q/k/v (the serving path's llama3.2-1b decode:
+// D 64, G 4).  FlashAttention-2 on mma.sync.m16n8k16 (bf16 in, float32
+// accumulate), with the G query heads as the rows of an m16 tile (rows
+// G..15 zero):
+//   * A block of 4 warps takes 64 keys a step; warp w takes keys
+//     16 w .. 16 w + 15 and streams them, K and V, through its own ring
+//     of 4 shared-memory stages by 16-byte cp.async copies (rows past
+//     len_b zero-filled, not read), so three steps are in flight while
+//     one is computed, and the warps need no barrier until the end.
+//     Rows are padded to 2 D + 16 bytes, so ldmatrix hits distinct banks.
+//   * S = Q.K^T with K by ldmatrix; the scores go through the online
+//     softmax in float32 registers; P is packed to bf16 as the A fragment
+//     of O += P.V, with V by ldmatrix.trans.  The denominator sums the
+//     float32 P.  The 4 warps merge their (max, denominator, sum) through
+//     shared memory once per block.
+//   * Splits are whole numbers of 64-key steps, at least 256 rows each
+//     (split_plan_tc), so each block's ring reaches its steady state.
+//
+// repro_decode_attn, the SIMT route: float32 (tensor cores would mean
+// TF32, which breaks the 2e-4 float32 tolerance), and every other call
+// the wrapper accepts.
+//   * K/V rows stream from global memory once, each thread pulling one
+//     16-byte vector per row; the positions of a warp are adjacent, so
+//     every load is a full, coalesced 128-byte line.
 //   * Each thread group keeps kKeys rows in flight per step and rescales
-//     its running sums once per step rather than once per row.
-// Tensor cores are not used: at G <= 8 query rows a tile would be mostly
-// empty, and the kernel waits on memory either way.
+//     its running sums once per step rather than once per row; the
+//     groups of a block merge through shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -235,6 +263,278 @@ __global__ void decode_merge_kernel(const float* __restrict__ part_m,
   }
 }
 
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+using repro::hopper::cp_async16;
+using repro::hopper::cp_async_commit;
+using repro::hopper::cp_async_wait;
+using repro::hopper::ldmatrix_x4;
+using repro::hopper::ldmatrix_x4_trans;
+using repro::hopper::mma_bf16;
+using repro::hopper::smem_u32;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16;              // keys a warp takes from each tile
+constexpr int TILE = kWarps * kRows;   // keys a block takes per step: 64
+constexpr int STAGES = 4;
+
+// Bytes of one staged K or V row: D bf16 and 16 bytes of padding, so that
+// the 8 row addresses of an ldmatrix fall on 8 distinct bank groups.
+__host__ __device__ constexpr int row_bytes(int D) { return 2 * D + 16; }
+// Dynamic shared memory of a block: each warp's own ring of STAGES stages
+// of kRows K rows and kRows V rows.
+__host__ __device__ constexpr int smem_bytes(int D) {
+  return kWarps * STAGES * 2 * kRows * row_bytes(D);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// grid (splits, Hkv, B), kThreads threads.  Block (split, h, b) covers
+// cache positions [split * chunk, min((split + 1) * chunk, len_b)) in
+// steps of TILE keys; warp w takes keys 16 w .. 16 w + 15 of every step,
+// streams them through its own cp.async ring and keeps its own online
+// softmax state, and the 4 warps merge once at the end.  The G query heads
+// are the rows of an m16 mma tile, rows G..15 zero.  Scores are kept in
+// base 2 (scaled by scale * log2(e) after the product).
+template <int D, int G>
+__global__ void __launch_bounds__(kThreads)
+    decode_split_tc_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const int* __restrict__ lengths,
+                           float* __restrict__ part_m,
+                           float* __restrict__ part_l,
+                           float* __restrict__ part_acc, int Hkv, int S,
+                           int chunk, float scale_log2) {
+  constexpr int RB = row_bytes(D);
+  constexpr int CPR = 2 * D / 16;            // 16-byte pieces a row
+  constexpr int WSTAGE = 2 * kRows * RB;     // one warp's K and V rows
+  constexpr int KS = D / 16;                 // k16 steps of Q.K^T
+  constexpr int NT = D / 8;                  // n8 tiles of the output
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ float sm_m[kWarps][G], sm_l[kWarps][G];
+  __shared__ float sm_o[kWarps][G][D];
+
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int len = min(max(lengths[b], 0), S);
+  const int start = split * chunk;
+  if (start >= len) return;  // the merge reads only splits that hold rows
+  const int end = min(start + chunk, len);
+  const int n_tiles = (end - start + TILE - 1) / TILE;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, q4 = lane % 4;  // the thread's fragment row, column pair
+  const size_t bh = static_cast<size_t>(b) * Hkv + h;
+  const bf16* kb = k + bh * S * D;
+  const bf16* vb = v + bh * S * D;
+  const uint32_t ring = smem_u32(smem) + warp * STAGES * WSTAGE;
+
+  // Copies this warp's rows of step t into stage t % STAGES; rows at or
+  // past end are zero-filled and never read.  Always commits a group, so
+  // that the group count stays one a step.
+  auto load = [&](int t) {
+    if (t < n_tiles) {
+      const uint32_t sk = ring + (t % STAGES) * WSTAGE, sv = sk + kRows * RB;
+      const int r0 = start + t * TILE + warp * kRows;
+#pragma unroll
+      for (int it = 0; it < kRows * CPR / 32; ++it) {
+        const int i = lane + 32 * it, r = i / CPR, c = i % CPR;
+        const bool in = r0 + r < end;
+        const size_t off = static_cast<size_t>(r0 + r) * D + 8 * c;
+        cp_async16(sk + r * RB + 16 * c, in ? kb + off : kb, in ? 16 : 0);
+        cp_async16(sv + r * RB + 16 * c, in ? vb + off : vb, in ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // Q as the A fragment of m16n8k16: per k16 step the registers of row g,
+  // columns 2 q4 (+1) and 8 + 2 q4 (+1); rows 8..15 are zero.
+  uint32_t qa[KS][2];
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    qa[s][0] = qa[s][1] = 0u;
+    if (g < G) {
+      const bf16* qp = q + (bh * G + g) * D + 16 * s + 2 * q4;
+      qa[s][0] = *reinterpret_cast<const uint32_t*>(qp);
+      qa[s][1] = *reinterpret_cast<const uint32_t*>(qp + 8);
+    }
+  }
+
+  float o[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m_run = kNeg, l_run = 0.f;
+
+  // ldmatrix row addresses: lane l gives row l % 8 of matrix l / 8.  For
+  // K (B of Q.K^T, n = key, k = d) the matrices are (keys 0-7 | 8-15) x
+  // (d 0-7 | 8-15), d first; for V (B of P.V by .trans, k = key, n = d)
+  // (keys 0-7 | 8-15) x (d 0-7 | 8-15), keys first.
+  const int k_row = lane % 8 + 8 * (lane / 16), k_col = 8 * ((lane / 8) % 2);
+  const int v_row = lane % 8 + 8 * ((lane / 8) % 2), v_col = 8 * (lane / 16);
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) load(s);
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<STAGES - 2>();
+    __syncwarp();  // step t has landed for every lane; all are past t - 1
+    load(t + STAGES - 1);
+    const uint32_t sk = ring + (t % STAGES) * WSTAGE, sv = sk + kRows * RB;
+
+    // Scores of the warp's 16 keys: two n8 tiles, keys 8 nt + 2 q4 (+1).
+    float sc[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      uint32_t kf[4];
+      ldmatrix_x4(kf, sk + k_row * RB + (16 * s + k_col) * 2);
+      const uint32_t a[4] = {qa[s][0], 0u, qa[s][1], 0u};
+      mma_bf16(sc[0], a, kf[0], kf[1]);
+      mma_bf16(sc[1], a, kf[2], kf[3]);
+    }
+
+    // Online softmax of row g (the thread's c0, c1; rows 8..15 unused).
+    const int key0 = start + t * TILE + warp * kRows + 2 * q4;
+    float mx = kNeg;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[nt][e] *= scale_log2;
+        if (key0 + 8 * nt + e < end) mx = fmaxf(mx, sc[nt][e]);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_run, mx);
+    const float corr = exp2f(m_run - m_new);
+    float p[2][2];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        p[nt][e] = key0 + 8 * nt + e < end ? exp2f(sc[nt][e] - m_new) : 0.f;
+    l_run = l_run * corr + (p[0][0] + p[0][1]) + (p[1][0] + p[1][1]);
+    m_run = m_new;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      o[j][0] *= corr;
+      o[j][1] *= corr;
+    }
+
+    // O += P V: P (row g, keys) in bf16 as the A fragment, rows 8..15 zero.
+    const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), 0u,
+                            pack_bf16(p[1][0], p[1][1]), 0u};
+#pragma unroll
+    for (int dt = 0; dt < D / 16; ++dt) {
+      uint32_t vf[4];
+      ldmatrix_x4_trans(vf, sv + v_row * RB + (16 * dt + v_col) * 2);
+      mma_bf16(o[2 * dt], pa, vf[0], vf[1]);
+      mma_bf16(o[2 * dt + 1], pa, vf[2], vf[3]);
+    }
+  }
+  cp_async_wait<0>();
+
+  // Merge the 4 warps: each row's denominator is spread over its quad.
+  l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
+  l_run += __shfl_xor_sync(0xffffffffu, l_run, 2);
+  if (g < G) {
+    if (q4 == 0) {
+      sm_m[warp][g] = m_run;
+      sm_l[warp][g] = l_run;
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      sm_o[warp][g][8 * j + 2 * q4] = o[j][0];
+      sm_o[warp][g][8 * j + 2 * q4 + 1] = o[j][1];
+    }
+  }
+  __syncthreads();
+  const size_t part = bh * gridDim.x + split;
+  for (int i = threadIdx.x; i < G * D; i += kThreads) {
+    const int gg = i / D, d = i % D;
+    float mxw = kNeg;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mxw = fmaxf(mxw, sm_m[w][gg]);
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      sum += sm_o[w][gg][d] * exp2f(sm_m[w][gg] - mxw);
+    part_acc[(part * G + gg) * D + d] = sum;
+  }
+  if (threadIdx.x < G) {
+    const int gg = threadIdx.x;
+    float mxw = kNeg;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mxw = fmaxf(mxw, sm_m[w][gg]);
+    float tot = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      tot += sm_l[w][gg] * exp2f(sm_m[w][gg] - mxw);
+    part_m[part * G + gg] = mxw;
+    part_l[part * G + gg] = tot;
+  }
+}
+
+template <int D, int G>
+int launch(const void* q, const void* k, const void* v, const int* lengths,
+           void* out, float* part_m, float* part_l, float* part_acc, int B,
+           int Hkv, int S, int splits, int chunk, float scale,
+           cudaStream_t stream) {
+  auto kernel = decode_split_tc_kernel<D, G>;
+  constexpr int smem = smem_bytes(D);
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<dim3(splits, Hkv, B), kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), lengths, part_m, part_l, part_acc, Hkv, S,
+      chunk, scale * kLog2e);
+  const int threads = G * D < 256 ? G * D : 256;
+  decode_merge_kernel<bf16><<<B * Hkv, threads, 0, stream>>>(
+      part_m, part_l, part_acc, lengths, static_cast<bf16*>(out), Hkv, G, D,
+      S, splits, chunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int dispatch_g(int G, const void* q, const void* k, const void* v,
+               const int* lengths, void* out, float* pm, float* pl, float* pa,
+               int B, int Hkv, int S, int splits, int chunk, float scale,
+               cudaStream_t st) {
+  switch (G) {
+    case 1: return launch<D, 1>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st);
+    case 2: return launch<D, 2>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st);
+    case 4: return launch<D, 4>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st);
+    case 8: return launch<D, 8>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int dispatch_d(int D, int G, const void* q, const void* k, const void* v,
+               const int* lengths, void* out, float* pm, float* pl, float* pa,
+               int B, int Hkv, int S, int splits, int chunk, float scale,
+               cudaStream_t st) {
+  switch (D) {
+    case 16: return dispatch_g<16>(G, q, k, v, lengths, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st);
+    case 32: return dispatch_g<32>(G, q, k, v, lengths, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st);
+    case 64: return dispatch_g<64>(G, q, k, v, lengths, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st);
+    case 128: return dispatch_g<128>(G, q, k, v, lengths, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace tc
+
 template <typename T, int D, int G>
 void launch(const void* q, const void* k, const void* v, const int* lengths,
             void* out, float* part_m, float* part_l, float* part_acc, int B,
@@ -280,8 +580,8 @@ bool dispatch_d(int D, int G, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q (B, Hkv, G, D), k/v (B, Hkv, S, D), out (B, Hkv, G, D): contiguous, of
-// one dtype (0 float32, 1 bfloat16).  lengths (B,) int32.  Partials:
+// The SIMT route.  q (B, Hkv, G, D), k/v (B, Hkv, S, D), out (B, Hkv, G,
+// D): contiguous, of one dtype (0 float32, 1 bfloat16).  lengths (B,) int32.  Partials:
 // part_m/part_l (B, Hkv, splits, G), part_acc (B, Hkv, splits, G, D) float32.
 // Returns cudaGetLastError() after both launches, or cudaErrorInvalidValue
 // for a dtype, D or G the kernel is not built for.
@@ -302,4 +602,26 @@ extern "C" int repro_decode_attn(const void* q, const void* k, const void* v,
     ok = dispatch_d<__nv_bfloat16>(D, G, q, k, v, len, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core route: as repro_decode_attn with q/k/v bfloat16 and
+// 16-byte aligned, and (splits, chunk) from split_plan_tc.  Returns
+// cudaGetLastError() after both launches, or cudaErrorInvalidValue for a
+// D or G the kernel is not built for.
+extern "C" int repro_decode_attn_tc(const void* q, const void* k,
+                                    const void* v, const void* lengths,
+                                    void* out, void* part_m, void* part_l,
+                                    void* part_acc, int B, int Hkv, int G,
+                                    int S, int D, int splits, int chunk,
+                                    float scale, void* stream) {
+  const uintptr_t any = reinterpret_cast<uintptr_t>(q) |
+                        reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v);
+  if (any % 16 != 0 || chunk % tc::TILE != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return tc::dispatch_d(D, G, q, k, v, static_cast<const int*>(lengths), out,
+                        static_cast<float*>(part_m),
+                        static_cast<float*>(part_l),
+                        static_cast<float*>(part_acc), B, Hkv, S, splits,
+                        chunk, scale, static_cast<cudaStream_t>(stream));
 }

@@ -39,8 +39,7 @@
 //   * TMA fills out-of-bounds boxes with zeros, so ragged M, N and K need
 //     no masking in the loads; the epilogue masks the stores.
 //   * The tensor maps are encoded on the host per call, through
-//     libcuda's cuTensorMapEncodeTiled, looked up in libcuda.so.1 (this
-//     library is plain nvcc output and is not linked against libcuda).
+//     libcuda's cuTensorMapEncodeTiled (hopper.cuh: encoder, encode_2d).
 //
 // repro_gemm_os, the SIMT route: float32, and bfloat16 shapes TMA cannot
 // take.  Every product and sum is an IEEE float32 FMA on the CUDA cores,
@@ -61,10 +60,10 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <stdint.h>
 
 #include "convert.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -219,79 +218,19 @@ namespace tc {
 constexpr int BK = 64;         // k per stage: one 128-byte swizzle row of bf16
 constexpr int kRowBytes = 128;  // a swizzled row: 64 bf16
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Spins until the phase of ``bar`` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One TMA box of ``map`` at (c0 innermost, c1) into shared memory at dst,
-// completing on the mbarrier ``bar``.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor with the 128-byte swizzle: start address,
-// leading and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma issue and wait.
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
+using repro::hopper::EncodeTiled;
+using repro::hopper::encoder;
+using repro::hopper::fence_regs;
+using repro::hopper::mbar_arrive;
+using repro::hopper::mbar_expect_tx;
+using repro::hopper::mbar_init;
+using repro::hopper::mbar_wait;
+using repro::hopper::smem_desc;
+using repro::hopper::smem_u32;
+using repro::hopper::tma_load_2d;
+using repro::hopper::wgmma_commit;
+using repro::hopper::wgmma_fence;
+using repro::hopper::wgmma_wait;
 
 // D[64 x N] += A[64 x 16] (K-major) @ B[16 x N] (N-major: imm-trans-b 1).
 __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da,
@@ -470,39 +409,12 @@ __global__ void __launch_bounds__(128 * NC + 32, 1)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, from the libcuda.so.1 that the CUDA runtime
-// has loaded, or null.
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib ? reinterpret_cast<EncodeTiled>(
-                     dlsym(lib, "cuTensorMapEncodeTiled"))
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A 2-D bf16 tensor map over a row-major (rows, cols) matrix with boxes of
 // box_rows x 64 columns (128 bytes, swizzled).
 bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int rows,
             int cols, int box_rows) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return repro::hopper::encode_2d(fn, map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr,
+                           rows, cols, box_rows, 64);
 }
 
 template <int NC, int BN, int STAGES, typename TO>

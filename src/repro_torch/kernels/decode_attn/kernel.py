@@ -1,14 +1,26 @@
-"""Launcher of the hand-written Hopper decode-attention kernel
+"""Launcher of the hand-written Hopper decode-attention kernels
 (``csrc/decode_attn.cu``), bound with ctypes.
 
-The S axis is split across blocks so that a decode batch, which has only
-B * Hkv (batch, kv-head) pairs, still fills the card; a second launch in
-the same C call merges the splits.
+Two routes, one C entry point each; ``route`` picks one from the dtype,
+the head shape and the pointers' alignment before the launch:
+
+* ``tensor_core``: bfloat16 with head_dim in ``HEAD_DIMS`` and H/Hkv in
+  ``GROUPS``, 16-byte aligned q/k/v.  A pipelined flash-decode on
+  ``mma.sync``: each warp streams its keys through a ring of cp.async
+  stages; splits of ``split_plan_tc``.
+* ``simt``: float32 (whose 2e-4 tolerance TF32 would break) and every
+  other call; float32 FMAs over 16-byte vectors; splits of
+  ``split_plan``.
+
+On both the S axis is split across blocks so that a decode batch, which
+has only B * Hkv (batch, kv-head) pairs, still fills the card; a second
+launch in the same C call merges the splits.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
@@ -21,6 +33,10 @@ GROUPS = (1, 2, 4, 8)
 _THREADS = 128            # kThreads in the source
 _KEYS = 4                 # kKeys in the source
 BLOCKS_PER_SM = 8         # split target: this many split blocks per SM
+ROUTES = ("tensor_core", "simt")
+TC_TILE = 64              # keys a tensor-core block takes per step (TILE)
+TC_MIN_CHUNK = 256        # rows a tensor-core split covers at least
+TC_BLOCKS_PER_SM = 2      # tensor-core blocks resident on an SM at D 64
 
 
 @functools.cache
@@ -29,12 +45,28 @@ def _sm_count(device_index: int) -> int:
 
 
 @functools.cache
-def _entry():
-    fn = _build.load("decode_attn").repro_decode_attn
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def _entries():
+    lib = _build.load("decode_attn")
+    simt = lib.repro_decode_attn
+    simt.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    simt.restype = ctypes.c_int
+    tc = lib.repro_decode_attn_tc
+    tc.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_void_p])
+    tc.restype = ctypes.c_int
+    return simt, tc
+
+
+def route(D: int, G: int, dtype: torch.dtype, aligned: bool = True) -> str:
+    """The route of a call with head_dim ``D``, ``G`` query heads per KV
+    head and ``dtype`` q/k/v; ``aligned`` says whether q, k and v are
+    16-byte aligned.  Every call the tensor-core kernel is not built for
+    goes to the SIMT kernel, which refuses what it cannot take either."""
+    if dtype == torch.bfloat16 and D in HEAD_DIMS and G in GROUPS \
+            and aligned:
+        return "tensor_core"
+    return "simt"
 
 
 def split_plan(B: int, Hkv: int, S: int, D: int, dtype: torch.dtype,
@@ -49,10 +81,23 @@ def split_plan(B: int, Hkv: int, S: int, D: int, dtype: torch.dtype,
     return cdiv(S, chunk), chunk
 
 
+def split_plan_tc(B: int, Hkv: int, S: int, n_sms: int):
+    """(splits, chunk) of the tensor-core route: chunk is a whole number of
+    TC_TILE-key steps and at least TC_MIN_CHUNK rows, so each block's
+    cp.async ring reaches its steady state, and the splits are as many as
+    keep every block resident at once (TC_BLOCKS_PER_SM an SM) when S is
+    long enough."""
+    want = max(1, (TC_BLOCKS_PER_SM * n_sms) // (B * Hkv))
+    chunk = max(TC_MIN_CHUNK, cdiv(cdiv(S, want), TC_TILE) * TC_TILE)
+    return cdiv(S, chunk), chunk
+
+
 def decode_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor, scale: float) -> torch.Tensor:
+                     lengths: torch.Tensor, scale: float
+                     ) -> Tuple[torch.Tensor, str]:
     """q: (B, Hkv, G, D); k/v: (B, Hkv, S, D); lengths: (B,) int32, all
-    contiguous on one CUDA device.  Returns (B, Hkv, G, D) in q's dtype."""
+    contiguous on one CUDA device.  Returns ((B, Hkv, G, D) in q's dtype,
+    the route that ran)."""
     B, Hkv, G, D = q.shape
     S = k.shape[2]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -71,8 +116,10 @@ def decode_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:     # the kernel reads 16-byte vectors
             raise ValueError(f"{name} must be 16-byte aligned")
-    splits, chunk = split_plan(B, Hkv, S, D, q.dtype,
-                               _sm_count(q.device.index))
+    kind = route(D, G, q.dtype)    # every pointer is 16-byte aligned here
+    n_sms = _sm_count(q.device.index)
+    splits, chunk = (split_plan_tc(B, Hkv, S, n_sms) if kind == "tensor_core"
+                     else split_plan(B, Hkv, S, D, q.dtype, n_sms))
     out = torch.empty_like(q)
     # one float32 scratch for the partials: max and denominator
     # (B, Hkv, splits, G) each, then the sums (B, Hkv, splits, G, D)
@@ -81,11 +128,15 @@ def decode_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         base = part.data_ptr()
-        err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       lengths.data_ptr(), out.data_ptr(), base, base + 4 * n,
-                       base + 8 * n, B, Hkv, G, S, D, splits, chunk,
-                       float(scale), _DTYPES[q.dtype], stream)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+                out.data_ptr(), base, base + 4 * n, base + 8 * n, B, Hkv, G,
+                S, D, splits, chunk, float(scale))
+        simt, tc = _entries()
+        if kind == "tensor_core":
+            err = tc(*args, stream)
+        else:
+            err = simt(*args, _DTYPES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"decode_attn kernel launch failed: CUDA error "
-                           f"{err}")
-    return out
+        raise RuntimeError(f"decode_attn kernel launch failed ({kind} "
+                           f"route): CUDA error {err}")
+    return out, kind

@@ -2,13 +2,15 @@
 PyTorch version on CPU tensors.
 
 ``decode_attn.launches`` counts the kernel's launches, so a run can show
-that its main path went through the kernel.
+that its main path went through the kernel, and
+``decode_attn.launches_by_route`` the launches of each route
+(``kernel.route``: ``tensor_core`` or ``simt``).
 """
 from __future__ import annotations
 
 import torch
 
-from .kernel import decode_attn_cuda
+from .kernel import ROUTES, decode_attn_cuda
 from .ref import decode_attn_ref
 
 
@@ -23,10 +25,12 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"decode_attn runs on CPU or CUDA tensors, "
                          f"not {q.device}")
-    out = decode_attn_cuda(q.reshape(B, Hkv, H // Hkv, D), k, v,
-                           lengths.to(torch.int32), scale)
+    out, kind = decode_attn_cuda(q.reshape(B, Hkv, H // Hkv, D), k, v,
+                                 lengths.to(torch.int32), scale)
     decode_attn.launches += 1
+    decode_attn.launches_by_route[kind] += 1
     return out.reshape(B, H, D)
 
 
 decode_attn.launches = 0
+decode_attn.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -78,3 +78,43 @@ def test_pad_to_and_cdiv():
     assert pad_to(x, 0, 2)[0] is x
     assert pad_to(x, -1, 4)[0].shape == (2, 4)
     assert cdiv(7, 2) == 4 and cdiv(8, 2) == 4
+
+
+@pytest.mark.parametrize("D,G,dtype,aligned,want", [
+    (64, 4, torch.bfloat16, True, "tensor_core"),    # llama3.2-1b decode
+    (128, 8, torch.bfloat16, True, "tensor_core"),
+    (16, 1, torch.bfloat16, True, "tensor_core"),
+    (32, 2, torch.bfloat16, True, "tensor_core"),
+    (64, 4, torch.float32, True, "simt"),            # TF32 would break 2e-4
+    (64, 4, torch.bfloat16, False, "simt"),          # unaligned q/k/v
+    (48, 4, torch.bfloat16, True, "simt"),           # head_dim not built
+    (64, 3, torch.bfloat16, True, "simt"),           # group not built
+    (64, 4, torch.float16, True, "simt"),            # wrong dtype
+])
+def test_decode_attn_route(D, G, dtype, aligned, want):
+    """The tensor-core route takes bf16 at every head_dim and group size
+    the kernels are built for, with 16-byte aligned q/k/v; float32 and
+    every other call run on SIMT, which refuses what it cannot take."""
+    assert kmod.route(D, G, dtype, aligned) == want
+
+
+@pytest.mark.parametrize("S,want", [(2048, (4, 512)), (1000, (4, 256)),
+                                    (1, (1, 256)), (100000, (4, 25024))])
+def test_split_plan_tc(S, want):
+    """B=8, Hkv=8 on a 132-SM card: as many splits as keep 2 blocks an SM
+    resident, each a whole number of 64-key steps and at least 256 rows."""
+    splits, chunk = kmod.split_plan_tc(8, 8, S, n_sms=132)
+    assert (splits, chunk) == want
+    assert splits * chunk >= S > (splits - 1) * chunk
+    assert chunk % kmod.TC_TILE == 0 and chunk >= kmod.TC_MIN_CHUNK
+
+
+def test_decode_attn_counts_launches_by_route():
+    """The per-route counter has one entry per route, and CPU calls count
+    on none."""
+    assert set(decode_attn.launches_by_route) == set(kmod.ROUTES)
+    before = dict(decode_attn.launches_by_route)
+    q, k, v, lens = (torch.from_numpy(a)
+                     for a in _inputs(1, 4, 2, 32, 16, seed=2))
+    decode_attn(q, k, v, lens)
+    assert decode_attn.launches_by_route == before

@@ -12,11 +12,13 @@ import torch
 from repro_torch.kernels.conv2d_os.kernel import route as conv_route
 from repro_torch.kernels.conv2d_os.ops import conv2d_os
 from repro_torch.kernels.conv2d_os.ref import conv2d_ref
+from repro_torch.kernels.decode_attn.kernel import route as attn_route
 from repro_torch.kernels.decode_attn.ops import decode_attn
 from repro_torch.kernels.decode_attn.ref import decode_attn_ref
 from repro_torch.kernels.gemm_os.kernel import route as gemm_route
 from repro_torch.kernels.gemm_os.ops import gemm_os
 from repro_torch.kernels.gemm_os.ref import gemm_ref
+from repro_torch.kernels.qgemm_int8.kernel import route as qgemm_route
 from repro_torch.kernels.qgemm_int8.ops import qgemm_int8
 from repro_torch.kernels.qgemm_int8.ref import (int_matmul_ref, qgemm_ref,
                                                 quantize_rowwise)
@@ -41,10 +43,14 @@ def test_decode_attn_kernel_matches_plain(S, dtype):
     lens = np.array([1, 63, 64, 65, S, S // 2, 129, S - 1], np.int32)
     args = [torch.from_numpy(a).to("cuda", dtype) for a in (q, k, v)]
     args.append(torch.from_numpy(lens).cuda())
+    kind = attn_route(D, H // Hkv, dtype)
+    assert kind == ("simt" if dtype == torch.float32 else "tensor_core")
     before = decode_attn.launches
+    before_route = decode_attn.launches_by_route[kind]
     got = decode_attn(*args)
     torch.cuda.synchronize()
     assert decode_attn.launches == before + 1
+    assert decode_attn.launches_by_route[kind] == before_route + 1
     tol = 2e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), decode_attn_ref(*args).float(),
                                rtol=tol, atol=tol)
@@ -70,6 +76,37 @@ def test_decode_attn_kernel_other_shapes(H, Hkv, D, S):
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got[:2], decode_attn_ref(q, k, v, lens)[:2],
                                rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_decode_attn_tensor_core_matches_plain(G, D):
+    """The tensor-core route (mma.sync flash-decode) for every head_dim and
+    group size it is built for, in bf16 within 2e-2 of the plain version
+    (outputs below 2 may land one bf16 step apart), at ragged lengths that
+    straddle its 16-key warp slices and 64-key steps, S itself, and 0,
+    whose row must come out as zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    S, Hkv = 700, 2
+    lens_list = [0, 1, 63, 64, 65, S, 300, 257]
+    B = len(lens_list)
+    rng = np.random.default_rng(100 * G + D)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape)).to("cuda",
+                                                            torch.bfloat16)
+               for shape in ((B, G * Hkv, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+    lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+    assert attn_route(D, G, torch.bfloat16) == "tensor_core"
+    before = decode_attn.launches_by_route["tensor_core"]
+    got = decode_attn(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert decode_attn.launches_by_route["tensor_core"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    torch.testing.assert_close(got[1:].float(),
+                               decode_attn_ref(q, k, v, lens)[1:].float(),
+                               rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.gpu
@@ -388,22 +425,26 @@ def test_conv2d_os_wide_taps_matches_plain(N, H, W, KH, KW, want):
                                    (1000, 2000, 777), (33, 37, 129),
                                    (1, 1, 1)])
 def test_qgemm_int8_kernel_bit_exact(M, K, N):
-    """Ragged M, N and K, K not a multiple of 4 (the kernel's byte path):
-    the float32 output equals the plain version's bit for bit, and so
-    does, with unit scales, the int32 accumulator (exact in float32 while
-    it stays below 2^24, which these inputs do)."""
+    """Ragged M, N and K, K not a multiple of 4 (the kernel's byte path),
+    on the SIMT route (N or K not a multiple of 16): the float32 output
+    equals the plain version's bit for bit, and so does, with unit
+    scales, the int32 accumulator (exact in float32 while it stays below
+    2^24, which these inputs do)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(M + K + N)
     a, sa = quantize_rowwise(_card(rng.normal(size=(M, K)), torch.float32))
     bq, sb = quantize_rowwise(_card(rng.normal(size=(N, K)), torch.float32))
     b = bq.t().contiguous()
+    assert qgemm_route(M, K, N) == "simt"
     before = qgemm_int8.launches
+    before_route = qgemm_int8.launches_by_route["simt"]
     got = qgemm_int8(a, b, sa, sb)
     ones = qgemm_int8(a, b, torch.ones_like(sa), torch.ones_like(sb))
     half = qgemm_int8(a, b, sa, sb, out_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     assert qgemm_int8.launches == before + 3
+    assert qgemm_int8.launches_by_route["simt"] == before_route + 3
     assert torch.equal(got, qgemm_ref(a, b, sa, sb))
     assert torch.equal(half, qgemm_ref(a, b, sa, sb, torch.bfloat16))
     acc = int_matmul_ref(a, b)
@@ -427,6 +468,61 @@ def test_qgemm_int8_kernel_at_k_limit():
     got = qgemm_int8(a, b, ones_a, ones_b)
     torch.cuda.synchronize()
     assert torch.equal(got, torch.full((2, 3), float(K_MAX * 128 ** 2),
+                                       device="cuda"))
+    assert torch.equal(got, qgemm_ref(a, b, ones_a, ones_b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(1024, 2048, 8192), (200, 2064, 1040),
+                                   (1, 16, 16), (129, 4096, 272),
+                                   (64, 144, 128)])
+def test_qgemm_int8_tensor_core_bit_exact(M, K, N, out_dtype):
+    """The tensor-core route (wgmma s8, B transposed in the block) at the
+    ffn_in site, with ragged M and K or N not a multiple of the 128 x 128
+    tile or of the 128-deep stage: the output in both types equals the
+    plain version's bit for bit, and with unit scales the int32
+    accumulator does too (exact in float32 below 2^24)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(M + K + N)
+    a, sa = quantize_rowwise(_card(rng.normal(size=(M, K)), torch.float32))
+    bq, sb = quantize_rowwise(_card(rng.normal(size=(N, K)), torch.float32))
+    b = bq.t().contiguous()
+    assert qgemm_route(M, K, N) == "tensor_core"
+    before = qgemm_int8.launches_by_route["tensor_core"]
+    got = qgemm_int8(a, b, sa, sb, out_dtype=out_dtype)
+    ones = qgemm_int8(a, b, torch.ones_like(sa), torch.ones_like(sb))
+    torch.cuda.synchronize()
+    assert qgemm_int8.launches_by_route["tensor_core"] == before + 2
+    assert got.dtype == out_dtype and got.shape == (M, N)
+    assert torch.equal(got, qgemm_ref(a, b, sa, sb, out_dtype))
+    acc = int_matmul_ref(a, b)
+    assert acc.abs().max().item() < 2 ** 24
+    assert torch.equal(ones, acc.float())
+
+
+@pytest.mark.gpu
+def test_qgemm_int8_tensor_core_at_k_limit():
+    """At the largest K the tensor-core route takes under the wrapper's
+    limit (131056, the last multiple of 16 below K_MAX), every a and b at
+    -128: the int32 accumulator reaches K * 128^2 = 8191 * 2^18 without
+    wrapping, exact in float32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.qgemm_int8.kernel import K_MAX
+
+    K = K_MAX // 16 * 16
+    assert qgemm_route(2, K, 16) == "tensor_core"
+    a = torch.full((2, K), -128, dtype=torch.int8, device="cuda")
+    b = torch.full((K, 16), -128, dtype=torch.int8, device="cuda")
+    ones_a = torch.ones(2, device="cuda")
+    ones_b = torch.ones(16, device="cuda")
+    before = qgemm_int8.launches_by_route["tensor_core"]
+    got = qgemm_int8(a, b, ones_a, ones_b)
+    torch.cuda.synchronize()
+    assert qgemm_int8.launches_by_route["tensor_core"] == before + 1
+    assert torch.equal(got, torch.full((2, 16), float(K * 128 ** 2),
                                        device="cuda"))
     assert torch.equal(got, qgemm_ref(a, b, ones_a, ones_b))
 

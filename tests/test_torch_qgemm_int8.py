@@ -17,6 +17,7 @@ from repro.kernels.qgemm_int8.ops import qgemm_int8 as jax_qgemm_int8
 from repro.kernels.qgemm_int8.ref import qgemm_ref as jax_ref
 from repro.kernels.qgemm_int8.ref import quantize_rowwise as jax_quantize
 from repro.kernels.qgemm_int8.ref import requantize_ref as jax_requantize
+from repro_torch.kernels.qgemm_int8 import kernel as kmod
 from repro_torch.kernels.qgemm_int8.kernel import K_MAX, qgemm_int8_cuda
 from repro_torch.kernels.qgemm_int8.ops import qgemm_int8
 from repro_torch.kernels.qgemm_int8.ref import (int_matmul_ref, qgemm_ref,
@@ -168,3 +169,33 @@ def test_qgemm_int8_kernel_rejects(change, error, match):
         else {}
     with pytest.raises(error, match=match):
         qgemm_int8_cuda(a, b, sa, sb, **kwargs)
+
+
+@pytest.mark.parametrize("M,K,N,dtype,aligned,want", [
+    (1024, 2048, 8192, torch.int8, True, "tensor_core"),   # ffn_in site
+    (200, 2064, 1040, torch.int8, True, "tensor_core"),    # ragged M, tiles
+    (1, 16, 16, torch.int8, True, "tensor_core"),
+    (K_MAX // 16 * 16, K_MAX // 16 * 16, 16, torch.int8, True, "tensor_core"),
+    (64, K_MAX, 64, torch.int8, True, "simt"),             # K % 16 != 0
+    (100, 96, 56, torch.int8, True, "simt"),               # N % 16 != 0
+    (33, 37, 129, torch.int8, True, "simt"),
+    (1024, 2048, 8192, torch.int8, False, "simt"),         # unaligned base
+    (1024, 2048, 8192, torch.uint8, True, "simt"),         # wrong dtype
+    (1024, 2048, 8192, torch.int32, True, "simt"),
+])
+def test_qgemm_int8_route(M, K, N, dtype, aligned, want):
+    """The tensor-core route takes int8 with K and N multiples of 16 (TMA's
+    16-byte row strides) and 16-byte aligned pointers, at any M; every
+    other call runs on SIMT, which refuses a wrong dtype as before."""
+    assert kmod.route(M, K, N, dtype, aligned) == want
+
+
+def test_qgemm_int8_counts_launches_by_route():
+    """The per-route counter has one entry per route, and CPU calls count
+    on none."""
+    assert set(qgemm_int8.launches_by_route) == set(kmod.ROUTES)
+    before = dict(qgemm_int8.launches_by_route)
+    a = torch.ones(4, 16, dtype=torch.int8)
+    qgemm_int8(a, torch.ones(16, 16, dtype=torch.int8), torch.ones(4),
+               torch.ones(16))
+    assert qgemm_int8.launches_by_route == before
