@@ -6,8 +6,12 @@
 2. Holds each kernel against its plain PyTorch version on the card at the
    serving paths' shapes, and times kernel, plain version and, where one
    exists, the closest single PyTorch call (a yardstick only; the port
-   never calls it): decode attention at llama3.2-1b's decode shape, the
-   WKV6 recurrence at rwkv6-1.6b's decode and prefill shapes.
+   never calls it): decode attention at llama3.2-1b's decode shape (and
+   rows of length 0, and the GQA groups 3, 5 and 48 of llama3.2-3b,
+   llama4-maverick and granite-34b, checked), the WKV6 recurrence at
+   rwkv6-1.6b's decode and prefill shapes (prefill on the chunked route,
+   with decays near 0 and near 1 too, the step kernel it replaced timed
+   on the same inputs; both routes timed around the route's threshold).
 3. The Table-I kernels (phase_table1_kernels): gemm_os at llama3.2-1b's
    ffn_in GEMM site (prefill in bf16 and float32, decode in bf16, the
    fused bias+silu and bias+gelu epilogues in both types, a ragged
@@ -20,18 +24,20 @@
    the plain version, drives the entry point, and checks that each
    kernel launched exactly as often as its rows called it, on the routes
    the rule gives them.
-   Every kernel but wkv6 has two routes (tensor_core, simt), chosen by
-   its kernel.route; every case of steps 2 and 3 prints the route it ran
-   on, from the ops' per-route launch counts, and fails unless it is the
-   one the rule gives (bf16, and int8, at the full-size shapes on the
-   tensor cores).  Where a case runs on the tensor cores, the SIMT
-   kernel that route replaced is held and timed on the same inputs
-   (prev_ms).  torch._int_mm is timed in every layout of b it accepts.
+   Every kernel has two routes, chosen by its kernel.route (tensor_core
+   and simt; wkv6 step and chunked); every case of steps 2 and 3 prints
+   the route it ran on, from the ops' per-route launch counts, and fails
+   unless it is the one the rule gives (bf16, and int8, at the full-size
+   shapes on the tensor cores; wkv6 prefill on chunked).  Where a case
+   runs on the redesigned route, the kernel that route replaced is held
+   and timed on the same inputs (prev_ms).  torch._int_mm is timed in
+   every layout of b it accepts.
 4. Serves llama3.2-1b and then rwkv6-1.6b at full width and depth (random
    weights from a seed) through the port's Engine: 12 requests over 8
    slots each, so slots are reused, and checks that the model's kernel
    ran once per layer in every decode step (decode_attn, on the tensor
-   cores) or in every decode step and every prefill (wkv6).  Then holds
+   cores) or in every decode step and every prefill (wkv6: decode on the
+   step route, each prefill on the route its length gives).  Then holds
    one decode step's logits, kernel-backed, against the same step with
    the plain version, and profiles a few decode steps.
 5. Prints the kernels as one JSON line, the card's name and power limit,
@@ -45,6 +51,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -75,6 +82,13 @@ KERNEL_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 WKV6_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-4)}
 WKV6_STATE_TOL = 1e-4
 WKV6_PREFILL_T = (1024, 777)
+# wkv6 decay ranges: as the smoke draws them ("mid"), near 0 (a chunk's
+# decay product underflows) and near 1 (the state carries the whole run)
+WKV6_DECAYS = {"mid": (0.9, 0.999), "near0": (1e-4, 0.05),
+               "near1": (0.999, 0.99999)}
+# Batch-1 prompts (the engine's prefill) timed on both wkv6 routes, on
+# either side of the route's threshold
+WKV6_CROSSOVER_T = (48, 64)
 # One full-depth decode step, kernel against plain version, both bf16:
 # where the two round a kernel output to neighbouring bf16 values, the
 # layers of random weights carry the difference into the logits.  Measured
@@ -118,12 +132,13 @@ def decode_attn_bound(lengths, dtype):
 
 def wkv6_bound(B, T, H, D, dtype, with_state0: bool):
     """(bound_ms, bound_by): r, k, v, w and u read once, the state read
-    (when given) and written once, the output written; 7 D^2 float32
-    flops per (batch, head, step)."""
+    (when given) and written once, the output written; 5 D^2 float32
+    flops per (batch, head, step): r . S is 2 D^2, diag(w) S + k^T v is
+    3 D^2, and the u term, (sum_d r_d u_d k_d) v_e, is O(D)."""
     n = B * T * H * D
     nbytes = 5 * n * dtype.itemsize + 4 * H * D + \
         (2 if with_state0 else 1) * 4 * B * H * D * D
-    return roofline(nbytes, 7 * B * H * T * D * D, PEAK_FLOPS[torch.float32])
+    return roofline(nbytes, 5 * B * H * T * D * D, PEAK_FLOPS[torch.float32])
 
 
 def phase_build():
@@ -158,8 +173,8 @@ def _simt_decode_attn(q, k, v, lens):
     Bq, Hq, Dq = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     G = Hq // Hkv
-    splits, chunk = dk.split_plan(Bq, Hkv, S, Dq, q.dtype,
-                                  dk._sm_count(q.device.index))
+    splits, chunk = dk.plan("simt", Bq, Hkv, G, S, Dq, q.dtype,
+                            dk._sm_count(q.device.index))
     out = torch.empty_like(q)
     n = Bq * Hkv * splits * G
     part = torch.empty(n * (Dq + 2), dtype=torch.float32, device=q.device)
@@ -174,10 +189,61 @@ def _simt_decode_attn(q, k, v, lens):
     return out
 
 
+# decode_attn beyond llama3.2-1b's shape: (label, query heads, KV heads,
+# head_dim) of the registry's groups that are no tile of their own
+GQA_GROUPS = (("llama3.2-3b G=3", 24, 8, 128),
+              ("llama4-maverick G=5", 40, 8, 128),
+              ("granite-34b G=48", 48, 1, 128))
+
+
+def _decode_attn_edge_checks(card: str):
+    """decode_attn against its plain version where the serving shape does
+    not go, each case on the route the rule gives it: rows of length 0
+    (the mean of V over all S rows) beside rows of other lengths, at
+    llama3.2-1b's shape, and the GQA groups of GQA_GROUPS, both dtypes."""
+    from repro_torch.kernels.decode_attn.kernel import group_tile, route
+    from repro_torch.kernels.decode_attn.ops import decode_attn
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases = [("length 0", H, HKV, D, S_MAX,
+              [0, S_MAX, 0, 1, 65, S_MAX // 2, 0, S_MAX - 1])]
+    cases += [(label, hq, hkv, d, S_MAX,
+               [0, 1, 63, 65, S_MAX, 1000, 129, S_MAX - 1])
+              for label, hq, hkv, d in GQA_GROUPS]
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, hq, hkv, d, S, lens_list in cases:
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(dtype) for shape in
+                       ((B, hq, d), (B, hkv, S, d), (B, hkv, S, d)))
+            lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+            got = decode_attn(q, k, v, lens)
+            torch.cuda.synchronize()
+            want = decode_attn_ref(q, k, v, lens)
+            tol = KERNEL_TOL[dtype]
+            err = _held(f"decode_attn {label} {dtype}", got, want,
+                        (tol, tol))
+            G = hq // hkv
+            kind = ran_on(decode_attn, route(d, G, dtype),
+                          f"decode_attn {label} {dtype}")
+            zero = [i for i, n in enumerate(lens_list) if n == 0]
+            mean = v.float().mean(2).repeat_interleave(G, 1)
+            z_err = _held(f"decode_attn {label} {dtype} length-0 rows",
+                          got[zero].float(), mean[zero], (tol, tol))
+            tile = group_tile(G, kind)
+            print(f"[decode_attn] {str(dtype)[6:]} {label}: B={B} H={hq} "
+                  f"Hkv={hkv} D={d} S={S} lengths {lens_list} on the "
+                  f"{kind} route ({-(-G // tile)} tile(s) of {tile} query "
+                  f"heads): max_abs_err {err:.3e}, length-0 rows against "
+                  f"the mean of V {z_err:.3e} (tol {tol}) [{card}]")
+            del q, k, v
+
+
 def phase_decode_attn_check(card: str):
     """decode_attn against its plain version at the serving shapes, each
     case on the route the rule gives it (bf16 on the tensor cores, float32
-    on SIMT); in bf16 the SIMT kernel is timed on the same inputs."""
+    on SIMT); in bf16 the SIMT kernel is timed on the same inputs.  Then
+    the edge cases of _decode_attn_edge_checks."""
     import torch.nn.functional as F
     from repro_torch.bench import sleep_cycles_per_ms, time_ms
     from repro_torch.kernels.decode_attn.kernel import route
@@ -262,31 +328,68 @@ def phase_decode_attn_check(card: str):
                         bound_ms=bound_ms, bound_by=bound_by,
                         library_ms=library_ms, prev_ms=prev_ms)
             del bufs
+    _decode_attn_edge_checks(card)
     return entry
 
 
+def _wkv6_entry(kind, r, k, v, w, u, s0=None):
+    """wkv6 on the ``kind`` route's C entry, whatever the rule would
+    choose: at prefill the step kernel is the one the chunked route
+    replaced, run here as the redesign's "before".  Not counted as a
+    launch of the path.  Returns (out, state)."""
+    from repro_torch.kernels.wkv6 import kernel as wk
+    nb, T, nh, d = r.shape
+    out = torch.empty_like(r)
+    state = torch.empty((nb, nh, d, d), dtype=torch.float32, device="cuda")
+    args = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), None if s0 is None else s0.data_ptr(),
+            out.data_ptr(), state.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    if kind == "step":
+        err = wk._entries()["step"](*args, nb, T, nh, d,
+                                    wk._DTYPES[r.dtype], stream)
+    else:
+        scratch, ptrs = wk._chunked_scratch(nb, T, nh, d, r.device)
+        err = wk._entries()["chunked"](*args, *ptrs, nb, T, nh, d,
+                                       wk.CHUNK_T, wk._DTYPES[r.dtype],
+                                       stream)
+    if err:
+        raise RuntimeError(f"wkv6 {kind} entry failed: CUDA error {err}")
+    return out, state
+
+
 def phase_wkv6_check(card: str):
-    """wkv6 against its plain version at rwkv6-1.6b's serving shapes: the
-    decode step (B=8, T=1) from a nonzero state, and batch-1 prefills from
-    zeros, whole and in two halves with the carried state."""
+    """wkv6 against its plain version at rwkv6-1.6b's serving shapes, each
+    case on the route the rule gives it: the decode step (B=8, T=1) from a
+    nonzero state on the step route, and batch-1 prefills from zeros on
+    the chunked route, whole and in two halves with the carried state,
+    with decays as the model draws them and near 0 and near 1.  At
+    prefill the step kernel is held and timed on the same inputs.  Then
+    both routes at batch-1 prompts on either side of the threshold.
+    Returns the decode and the prefill entries of the kernels line."""
     from repro_torch.bench import sleep_cycles_per_ms, time_ms
+    from repro_torch.kernels.wkv6.kernel import CHUNK_T, route
     from repro_torch.kernels.wkv6.ops import wkv6
-    from repro_torch.kernels.wkv6.ref import wkv6_ref
+    from repro_torch.kernels.wkv6.ref import wkv6_chunked_ref, wkv6_ref
 
     cyc = sleep_cycles_per_ms()
-    entry = None
-    cases = [(B, 1, True)] + [(1, T, False) for T in WKV6_PREFILL_T]
+    entries = []
+    wkv6.launches_by_route.update(dict.fromkeys(wkv6.launches_by_route, 0))
+    cases = [(B, 1, True, "mid")] + [(1, T, False, "mid")
+                                     for T in WKV6_PREFILL_T]
+    cases += [(1, WKV6_PREFILL_T[0], False, d) for d in ("near0", "near1")]
     for dtype in (torch.bfloat16, torch.float32):
-        for nb, T, with_state0 in cases:
+        for nb, T, with_state0, decays in cases:
             gen = torch.Generator(device="cuda").manual_seed(T + nb)
             shape = (nb, T, H, D)
+            lo, hi = WKV6_DECAYS[decays]
 
             def make():
                 r, k = (0.5 * torch.randn(shape, generator=gen,
                                           device="cuda") for _ in range(2))
                 v = torch.randn(shape, generator=gen, device="cuda")
-                w = 0.9 + 0.099 * torch.rand(shape, generator=gen,
-                                             device="cuda")
+                w = lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                                device="cuda")
                 u = 0.3 * torch.randn((H, D), generator=gen, device="cuda")
                 s0 = torch.randn((nb, H, D, D), generator=gen,
                                  device="cuda") if with_state0 else None
@@ -294,21 +397,26 @@ def phase_wkv6_check(card: str):
 
             nbytes = 5 * nb * T * H * D * dtype.itemsize + \
                 8 * nb * H * D * D
-            bufs = [make() for _ in range(max(2, math.ceil(
-                2 * L2_BYTES / nbytes)))]
+            bufs = [make() for _ in range(_copies(nbytes))]
+            want_kind = route(nb, T, H, D)
             got = wkv6(*bufs[0])
             torch.cuda.synchronize()
-            want = wkv6_ref(*bufs[0])
-            err = (got[0].float() - want[0].float()).abs().max().item()
-            s_err = (got[1] - want[1]).abs().max().item()
+            label = f"{'decode' if T == 1 else 'prefill'}, decays {lo}-{hi}"
+            kind = ran_on(wkv6, want_kind, f"wkv6 {dtype} B={nb} T={T} "
+                                           f"{decays}")
+            # Near 1 the plain version's own float32 rounding reaches the
+            # tolerance at T 1024: hold against it in float64 there.
+            wide = torch.float64 if decays == "near1" else torch.float32
+            want = wkv6_ref(*(a if a is None else a.to(wide)
+                              for a in bufs[0]))
+            want = (want[0].to(dtype), want[1].float())
             rtol, atol = WKV6_TOL[dtype]
-            ok = bool(torch.allclose(got[0].float(), want[0].float(),
-                                     rtol=rtol, atol=atol)
-                      and torch.allclose(got[1], want[1],
-                                         rtol=WKV6_STATE_TOL,
-                                         atol=WKV6_STATE_TOL))
-            label = "decode" if T == 1 else "prefill"
-            if T > 1:     # two halves with the carried state
+            err = _held(f"wkv6 {dtype} B={nb} T={T} {decays} output",
+                        got[0], want[0], (rtol, atol))
+            s_err = _held(f"wkv6 {dtype} B={nb} T={T} {decays} state",
+                          got[1], want[1], (WKV6_STATE_TOL,) * 2)
+            label += f", plain in {str(wide)[6:]}"
+            if T > 1 and decays == "mid":  # two halves, the carried state
                 r, k, v, w, u, _ = bufs[0]
                 half = T // 2
                 h1, s1 = wkv6(*(a[:, :half].contiguous()
@@ -316,42 +424,111 @@ def phase_wkv6_check(card: str):
                 h2, s2 = wkv6(*(a[:, half:].contiguous()
                                 for a in (r, k, v, w)), u, s1)
                 torch.cuda.synchronize()
-                c_err = max(
-                    (torch.cat([h1, h2], 1).float() - got[0].float())
-                    .abs().max().item(), (s2 - got[1]).abs().max().item())
-                ok = ok and bool(
-                    torch.allclose(torch.cat([h1, h2], 1).float(),
-                                   got[0].float(), rtol=rtol, atol=atol)
-                    and torch.allclose(s2, got[1], rtol=WKV6_STATE_TOL,
-                                       atol=WKV6_STATE_TOL))
+                ran_on(wkv6, route(nb, half, H, D), f"wkv6 {dtype} halves")
+                c_err = max(_held(f"wkv6 {dtype} T={T} halves",
+                                  torch.cat([h1, h2], 1), got[0],
+                                  (rtol, atol)),
+                            _held(f"wkv6 {dtype} T={T} halves state", s2,
+                                  got[1], (WKV6_STATE_TOL,) * 2))
                 label += f", halves with the carried state differ by " \
                     f"{c_err:.3e}"
+                if dtype == torch.float32:   # the chunked form on the CPU
+                    ch = wkv6_chunked_ref(*bufs[0][:5], ct=CHUNK_T)
+                    label += ", plain chunked form differs by " \
+                        f"{(ch[0] - got[0]).abs().max().item():.3e}"
             ms, host_ms = time_ms([lambda b=b: wkv6(*b) for b in bufs],
                                   200 if T == 1 else 20, cyc)
-            plain_ms, _ = time_ms([lambda b=b: wkv6_ref(*b) for b in bufs],
-                                  20 if T == 1 else 2, cyc)
+            ran_on(wkv6, kind, f"wkv6 {dtype} B={nb} T={T} timed")
+            timing = f"kernel {ms:.5f} ms (host {host_ms:.5f} ms per call)"
+            prev_ms = None
+            # The step kernel on the same inputs, where the model's decays
+            # are drawn.  Near 1 its float32 sum of a thousand steps is as
+            # far from the exact value as the plain version's (1.5e-4 of
+            # outputs near 200); the near cases check the chunked route.
+            if kind == "chunked" and decays == "mid":
+                _held(f"wkv6 {dtype} T={T} {decays} on the step entry",
+                      _wkv6_entry("step", *bufs[0])[0], want[0],
+                      (rtol, atol))
+                prev_ms, _ = time_ms([lambda b=b: _wkv6_entry("step", *b)
+                                      for b in bufs], 20, cyc)
+                timing += f", step route {prev_ms:.5f} ms " \
+                    f"({prev_ms / ms:.2f}x the kernel)"
+            plain_ms = None
+            if decays == "mid":
+                plain_ms, _ = time_ms([lambda b=b: wkv6_ref(*b)
+                                       for b in bufs], 20 if T == 1 else 2,
+                                      cyc)
+                timing += f", plain {plain_ms:.5f} ms"
+            if kind == "chunked" and decays == "mid":
+                timing += f"; by kernel {_device_ms_by_kernel(wkv6, bufs)}"
+                ran_on(wkv6, kind, f"wkv6 {dtype} B={nb} T={T} profiled")
             bound_ms, bound_by = wkv6_bound(nb, T, H, D, dtype, with_state0)
             print(f"[wkv6] {str(dtype)[6:]} B={nb} T={T} H={H} D={D} "
-                  f"({label}): max_abs_err {err:.3e} (tol rtol {rtol:.2e} "
-                  f"atol {atol:.0e}), state {s_err:.3e} (tol "
-                  f"{WKV6_STATE_TOL}); kernel {ms:.5f} ms (host "
-                  f"{host_ms:.5f} ms per call), plain {plain_ms:.5f} ms, "
-                  f"bound {bound_ms:.5f} ms ({bound_by}), "
+                  f"({label}) on the {kind} route: max_abs_err {err:.3e} "
+                  f"(tol rtol {rtol:.2e} atol {atol:.0e}), state "
+                  f"{s_err:.3e} (tol {WKV6_STATE_TOL}); {timing}, bound "
+                  f"{bound_ms:.5f} ms ({bound_by}), "
                   f"{100 * bound_ms / ms:.1f}% of bound [{card}]")
-            if not ok:
-                raise AssertionError(
-                    f"wkv6 disagrees with its plain version: {dtype} "
-                    f"B={nb} T={T} max_abs_err {err}, state {s_err}")
-            if dtype == torch.bfloat16 and T == 1:
+            if dtype == torch.bfloat16 and decays == "mid" and \
+                    T in (1, WKV6_PREFILL_T[0]):
                 entry = dict(
-                    name="wkv6", route="cuda",
+                    name="wkv6", route="cuda", kernel_route=kind,
                     source="src/repro_torch/csrc/wkv6.cu",
                     replaces="src/repro/kernels/wkv6/kernel.py:53",
-                    shape=f"B={nb} T={T} H={H} D={D} bf16, decode step",
+                    shape=f"B={nb} T={T} H={H} D={D} bf16, " +
+                    ("decode step" if T == 1 else "batch-1 prefill"),
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                if prev_ms is not None:
+                    entry["prev_ms"] = prev_ms
+                entries.append(entry)
             del bufs
-    return entry
+
+    # Both routes on the same inputs on either side of the threshold
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for T in WKV6_CROSSOVER_T:
+        shape = (1, T, H, D)
+        bufs = []
+        for _ in range(4):
+            r, k = (0.5 * torch.randn(shape, generator=gen, device="cuda")
+                    for _ in range(2))
+            v = torch.randn(shape, generator=gen, device="cuda")
+            w = 0.9 + 0.099 * torch.rand(shape, generator=gen, device="cuda")
+            u = 0.3 * torch.randn((H, D), generator=gen, device="cuda")
+            bufs.append(tuple(a.to(torch.bfloat16) for a in (r, k, v, w))
+                        + (u,))
+        want = wkv6_ref(*bufs[0])
+        times = {}
+        for name in ("step", "chunked"):
+            _held(f"wkv6 B=1 T={T} on the {name} entry",
+                  _wkv6_entry(name, *bufs[0])[0], want[0],
+                  WKV6_TOL[torch.bfloat16])
+            times[name] = time_ms([lambda b=b, name=name: _wkv6_entry(
+                name, *b) for b in bufs], 20, cyc)[0]
+        print(f"[wkv6] bf16 B=1 T={T}: the rule gives the "
+              f"{route(1, T, H, D)} route; step {times['step']:.5f} ms, "
+              f"chunked {times['chunked']:.5f} ms [{card}]")
+    return entries
+
+
+def _device_ms_by_kernel(fn, bufs, calls: int = 10) -> str:
+    """Device ms per call of each kernel that ``calls`` calls of ``fn``
+    over ``bufs`` launch, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(*bufs[i % len(bufs)])
+        torch.cuda.synchronize()
+    out = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0)
+        name = re.search(r"(\w+)(?:<[^()]*>)?\(", e.key)
+        if us > 0:
+            out.append(f"{name.group(1) if name else e.key[:40]} "
+                       f"{us / 1e3 / calls:.5f} ms")
+    return ", ".join(out)
 
 
 def _copies(nbytes: int) -> int:
@@ -753,7 +930,7 @@ def _serve_spec(arch: str):
     import repro_torch.models.rwkv6 as module
     from repro_torch.kernels.wkv6.ops import wkv6 as op
     from repro_torch.kernels.wkv6.ref import wkv6_ref as ref
-    return op, module, ref, 1, "wkv6_kernel"
+    return op, module, ref, 1, "wkv6_"
 
 
 def phase_serve(card: str, arch: str):
@@ -790,8 +967,9 @@ def phase_serve(card: str, arch: str):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     decode_attn.launches = wkv6.launches = 0
-    decode_attn.launches_by_route.update(
-        dict.fromkeys(decode_attn.launches_by_route, 0))
+    for routed in (decode_attn, wkv6):
+        routed.launches_by_route.update(
+            dict.fromkeys(routed.launches_by_route, 0))
     while pending or eng.n_active:
         while pending and eng.has_free_slot():
             req = pending.popleft()
@@ -807,6 +985,7 @@ def phase_serve(card: str, arch: str):
         decode_s += time.perf_counter() - t0
         steps += 1
     launches = op.launches
+    by_route = dict(op.launches_by_route)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     want = cfg.n_layers * (steps + per_prompt * N_REQUESTS)
@@ -824,6 +1003,18 @@ def phase_serve(card: str, arch: str):
         f"{cfg.n_layers} x ({steps} + {N_REQUESTS})"
     if op is decode_attn:     # bf16 at D 64, G 4: the tensor-core route
         how += f", {ran_on(decode_attn, 'tensor_core', name)} route"
+    else:     # decode steps on the step route, each prefill by its length
+        from repro_torch.kernels.wkv6.kernel import route as wkv6_route
+        hd = cfg.d_model // cfg.n_heads
+        want_by_route = dict.fromkeys(by_route, 0)
+        want_by_route["step"] += cfg.n_layers * steps
+        for r in reqs:
+            want_by_route[wkv6_route(1, len(r.prompt), cfg.n_heads,
+                                     hd)] += cfg.n_layers
+        if by_route != want_by_route:
+            raise AssertionError(f"wkv6 launches by route {by_route}, not "
+                                 f"{want_by_route}")
+        how += f"; by route {by_route}"
     print(f"[serve] {N_REQUESTS} requests, {prompt_tokens} prompt tokens, "
           f"{decoded} decoded tokens in {steps} decode steps; {name} "
           f"launches {launches} = {how}")
@@ -869,7 +1060,7 @@ def phase_serve(card: str, arch: str):
         raise AssertionError("kernel-backed decode logits disagree with the "
                              "plain-backed ones")
     profile_steps(eng, card, device_kernel)
-    return {name: launches}
+    return {name: launches, **{f"{name}:{r}": n for r, n in by_route.items()}}
 
 
 def profile_steps(eng, card: str, kernel: str) -> None:
@@ -914,14 +1105,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    entries = [phase_decode_attn_check(card), phase_wkv6_check(card)]
+    entries = [phase_decode_attn_check(card), *phase_wkv6_check(card)]
     table1, launches = phase_table1_kernels(card)
     entries += table1
     for arch in ("llama3.2-1b", "rwkv6-1.6b"):
         launches.update(phase_serve(card, arch))
         torch.cuda.empty_cache()
-    for entry in entries:
-        entry["launches"] = launches[entry["name"]]
+    for entry in entries:     # a routed kernel's entry: its route's count
+        key = f"{entry['name']}:{entry.get('kernel_route')}"
+        entry["launches"] = launches.get(key, launches[entry["name"]])
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 // float32 <-> storage type conversions shared by the Table-I kernels
-// (gemm_os.cu, conv2d_os.cu, qgemm_int8.cu): inputs widen to float32 as
+// (gemm_os.cu, conv2d_os.cu, qgemm_int8.cu) and decode_attn.cu's merge of
+// a length-0 row: inputs widen to float32 as
 // they are staged, and each output rounds once, to nearest even.  store2
 // writes two neighbouring outputs of a tensor-core fragment at once,
 // store4 four of a staged output row.

@@ -5,8 +5,10 @@
 // Replaces the TPU kernel src/repro/kernels/decode_attn/kernel.py
 // (_decode_kernel, launched by decode_attn_pallas).  Same function:
 // scale 1/sqrt(D), positions >= length masked out, online softmax in
-// float32, denominator clamped at 1e-30, output in q's dtype, a row of
-// length 0 gives zeros.
+// float32, denominator clamped at 1e-30, output in q's dtype.  A row of
+// length 0 has every logit masked, so the reference's softmax is uniform
+// over all S rows: it gets the mean of its V over S, summed in float32
+// and rounded once, as decode_attn_ref gives it.
 //
 // Bound on the card: memory.  The K and V rows a call must read are
 // sum_b 2 * Hkv * len_b * D * sizeof(T) bytes, read once; the arithmetic
@@ -19,16 +21,22 @@
 //     against 132 SMs, so the S axis is split across blocks (the TPU ran
 //     it as a sequential grid axis).  Each split writes a partial (max,
 //     denominator, sum) in float32; a second small kernel merges them.
+//   * Any group G is taken.  A block serves one tile of GT query heads,
+//     GT the smallest instantiated tile (1, 2, 4, 8; 16 on the tensor
+//     cores) that holds G, or the largest; a grid axis runs over the
+//     cdiv(G, GT) tiles of a KV head, the last one padded (its heads past
+//     G have zero q and are not written).  K/V are read once per tile.
 //
 // Two routes, chosen by the wrapper from dtype, D, G and the pointers'
 // alignment (kernels/decode_attn/kernel.py: route), one C entry point
 // each, each with its own split plan:
 //
 // repro_decode_attn_tc, the tensor-core route: bfloat16, D 16/32/64/128,
-// G 1/2/4/8, 16-byte aligned q/k/v (the serving path's llama3.2-1b decode:
+// any G, 16-byte aligned q/k/v (the serving path's llama3.2-1b decode:
 // D 64, G 4).  FlashAttention-2 on mma.sync.m16n8k16 (bf16 in, float32
-// accumulate), with the G query heads as the rows of an m16 tile (rows
-// G..15 zero):
+// accumulate), with a tile's query heads as the rows of an m16 tile
+// (rows past the tile's heads zero; a thread keeps the softmax state of
+// row g and, for a tile of 16, of row g + 8):
 //   * A block of 4 warps takes 64 keys a step; warp w takes keys
 //     16 w .. 16 w + 15 and streams them, K and V, through its own ring
 //     of 4 shared-memory stages by 16-byte cp.async copies (rows past
@@ -57,6 +65,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "convert.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -99,24 +108,36 @@ struct Vec<__nv_bfloat16> {
   __device__ static __nv_bfloat16 store(float x) { return __float2bfloat16(x); }
 };
 
-// grid (splits, Hkv, B).  Block (split, h, b) covers cache positions
-// [split * chunk, min((split + 1) * chunk, len_b)).  Threads form groups of
-// TPK = D / VEC; a group reads one row with one vector load per thread.
-// Scores are kept in base 2 (q is pre-scaled by scale * log2(e)).
-template <typename T, int D, int G>
+// The smallest instantiated tile of query heads, up to max_tile, that
+// holds a group of G (the largest when none does).
+__host__ __device__ constexpr int group_tile(int G, int max_tile) {
+  int t = 1;
+  while (t < G && t < max_tile) t *= 2;
+  return t;
+}
+
+// grid (splits, Hkv * tiles, B).  Block (split, h * tiles + tile, b)
+// covers cache positions [split * chunk, min((split + 1) * chunk, len_b))
+// for query heads tile * GT .. tile * GT + GT - 1 of KV head h (those
+// below G).  Threads form groups of TPK = D / VEC; a group reads one row
+// with one vector load per thread.  Scores are kept in base 2 (q is
+// pre-scaled by scale * log2(e)).
+template <typename T, int D, int GT>
 __global__ void __launch_bounds__(kThreads)
     decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int* __restrict__ lengths,
                         float* __restrict__ part_m, float* __restrict__ part_l,
-                        float* __restrict__ part_acc, int Hkv, int S,
-                        int chunk, float scale_log2) {
+                        float* __restrict__ part_acc, int Hkv, int G,
+                        int tiles, int S, int chunk, float scale_log2) {
   constexpr int VEC = Vec<T>::N;
   constexpr int TPK = D / VEC;
   constexpr int NG = kThreads / TPK;
   static_assert(D % VEC == 0 && TPK <= 32 && 32 % TPK == 0, "bad D");
 
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int h = blockIdx.y / tiles, g0 = (blockIdx.y % tiles) * GT;
+  const int gn = min(GT, G - g0);  // the tile's heads below G
   const int len = min(max(lengths[b], 0), S);
   const int start = split * chunk;
   if (start >= len) return;  // the merge reads only splits that hold rows
@@ -129,16 +150,21 @@ __global__ void __launch_bounds__(kThreads)
   const T* kb = k + bh * S * D + d0;
   const T* vb = v + bh * S * D + d0;
 
-  float qr[G][VEC];
+  float qr[GT][VEC];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    Vec<T>::load(q + (bh * G + g) * D + d0, qr[g]);
+  for (int g = 0; g < GT; ++g) {
+    if (g < gn) {
+      Vec<T>::load(q + (bh * G + g0 + g) * D + d0, qr[g]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) qr[g][i] = 0.f;
+    }
 #pragma unroll
     for (int i = 0; i < VEC; ++i) qr[g][i] *= scale_log2;
   }
-  float m[G], l[G], acc[G][VEC];
+  float m[GT], l[GT], acc[GT][VEC];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GT; ++g) {
     m[g] = kNeg;
     l[g] = 0.f;
 #pragma unroll
@@ -160,11 +186,11 @@ __global__ void __launch_bounds__(kThreads)
         for (int i = 0; i < VEC; ++i) kr[c][i] = vr[c][i] = 0.f;
       }
     }
-    float s[kKeys][G];
+    float s[kKeys][GT];
 #pragma unroll
     for (int c = 0; c < kKeys; ++c) {
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
+      for (int g = 0; g < GT; ++g) {
         float dot = 0.f;
 #pragma unroll
         for (int i = 0; i < VEC; ++i) dot = fmaf(qr[g][i], kr[c][i], dot);
@@ -175,7 +201,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
+    for (int g = 0; g < GT; ++g) {
       float mx = m[g];
 #pragma unroll
       for (int c = 0; c < kKeys; ++c)
@@ -196,19 +222,19 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   // Merge the NG groups of the block through shared memory.
-  __shared__ float sm_m[NG][G];
-  __shared__ float sm_l[NG][G];
-  __shared__ float sm_acc[NG][G][D];
+  __shared__ float sm_m[NG][GT];
+  __shared__ float sm_l[NG][GT];
+  __shared__ float sm_acc[NG][GT][D];
   if (lane == 0) {
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
+    for (int g = 0; g < GT; ++g) {
       sm_m[grp][g] = m[g];
       sm_l[grp][g] = l[g];
     }
   }
   __syncthreads();
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GT; ++g) {
     float mx = kNeg;
     for (int j = 0; j < NG; ++j) mx = fmaxf(mx, sm_m[j][g]);
     const float sc = exp2f(m[g] - mx);
@@ -216,37 +242,52 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < VEC; ++i) sm_acc[grp][g][d0 + i] = acc[g][i] * sc;
   }
   __syncthreads();
-  const size_t part = bh * gridDim.x + split;
-  for (int t = threadIdx.x; t < G * D; t += kThreads) {
+  // Partials of head g0 + g of this split: (B, Hkv, splits, G) order.
+  const size_t part = (bh * gridDim.x + split) * G + g0;
+  for (int t = threadIdx.x; t < gn * D; t += kThreads) {
     const int g = t / D, d = t % D;
     float sum = 0.f;
     for (int j = 0; j < NG; ++j) sum += sm_acc[j][g][d];
-    part_acc[(part * G + g) * D + d] = sum;
+    part_acc[(part + g) * D + d] = sum;
   }
-  if (threadIdx.x < G) {
+  if (threadIdx.x < gn) {
     const int g = threadIdx.x;
     float mx = kNeg;
     for (int j = 0; j < NG; ++j) mx = fmaxf(mx, sm_m[j][g]);
     float tot = 0.f;
     for (int j = 0; j < NG; ++j) tot += sm_l[j][g] * exp2f(sm_m[j][g] - mx);
-    part_m[part * G + g] = mx;
-    part_l[part * G + g] = tot;
+    part_m[part + g] = mx;
+    part_l[part + g] = tot;
   }
 }
 
-// grid (B * Hkv).  Merges the splits that hold rows; a row with length 0
-// has none and gets zeros.
+// grid (B * Hkv).  Merges the splits that hold rows.  A row of length 0
+// has none: every logit is masked, the reference's softmax is uniform, and
+// each of its G heads gets the mean of the KV head's V over all S rows,
+// summed in float32 (coalesced: neighbouring threads take neighbouring d).
 template <typename T>
 __global__ void decode_merge_kernel(const float* __restrict__ part_m,
                                     const float* __restrict__ part_l,
                                     const float* __restrict__ part_acc,
                                     const int* __restrict__ lengths,
+                                    const T* __restrict__ v,
                                     T* __restrict__ out, int Hkv, int G, int D,
                                     int S, int splits, int chunk) {
   const int bh = blockIdx.x;
   const int len = min(max(lengths[bh / Hkv], 0), S);
   const int used = min(splits, (len + chunk - 1) / chunk);
   const size_t part0 = static_cast<size_t>(bh) * splits;
+  if (used == 0) {
+    const T* vb = v + static_cast<size_t>(bh) * S * D;
+    for (int t = threadIdx.x; t < G * D; t += blockDim.x) {
+      const int d = t % D;
+      float sum = 0.f;
+      for (int s = 0; s < S; ++s)
+        sum += repro::to_float(vb[static_cast<size_t>(s) * D + d]);
+      out[static_cast<size_t>(bh) * G * D + t] = Vec<T>::store(sum / S);
+    }
+    return;
+  }
   for (int t = threadIdx.x; t < G * D; t += blockDim.x) {
     const int g = t / D, d = t % D;
     float mx = kNeg;
@@ -294,14 +335,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// grid (splits, Hkv, B), kThreads threads.  Block (split, h, b) covers
-// cache positions [split * chunk, min((split + 1) * chunk, len_b)) in
-// steps of TILE keys; warp w takes keys 16 w .. 16 w + 15 of every step,
-// streams them through its own cp.async ring and keeps its own online
-// softmax state, and the 4 warps merge once at the end.  The G query heads
-// are the rows of an m16 mma tile, rows G..15 zero.  Scores are kept in
-// base 2 (scaled by scale * log2(e) after the product).
-template <int D, int G>
+// grid (splits, Hkv * tiles, B), kThreads threads.  Block (split,
+// h * tiles + tile, b) covers cache positions [split * chunk, min((split +
+// 1) * chunk, len_b)) in steps of TILE keys for query heads tile * GT ..
+// tile * GT + GT - 1 of KV head h (those below G); warp w takes keys
+// 16 w .. 16 w + 15 of every step, streams them through its own cp.async
+// ring and keeps its own online softmax state, and the 4 warps merge once
+// at the end.  The tile's heads are the rows of an m16 mma tile, rows past
+// them zero; a thread holds rows g and, when GT is 16, g + 8 (NR rows).
+// Scores are kept in base 2 (scaled by scale * log2(e) after the product).
+template <int D, int GT>
 __global__ void __launch_bounds__(kThreads)
     decode_split_tc_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
@@ -309,18 +352,22 @@ __global__ void __launch_bounds__(kThreads)
                            const int* __restrict__ lengths,
                            float* __restrict__ part_m,
                            float* __restrict__ part_l,
-                           float* __restrict__ part_acc, int Hkv, int S,
-                           int chunk, float scale_log2) {
+                           float* __restrict__ part_acc, int Hkv, int G,
+                           int tiles, int S, int chunk, float scale_log2) {
   constexpr int RB = row_bytes(D);
   constexpr int CPR = 2 * D / 16;            // 16-byte pieces a row
   constexpr int WSTAGE = 2 * kRows * RB;     // one warp's K and V rows
   constexpr int KS = D / 16;                 // k16 steps of Q.K^T
   constexpr int NT = D / 8;                  // n8 tiles of the output
+  constexpr int NR = GT > 8 ? 2 : 1;         // fragment rows a thread holds
+  static_assert(GT <= 16, "one m16 tile");
   extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ float sm_m[kWarps][G], sm_l[kWarps][G];
-  __shared__ float sm_o[kWarps][G][D];
+  __shared__ float sm_m[kWarps][GT], sm_l[kWarps][GT];
+  __shared__ float sm_o[kWarps][GT][D];
 
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int h = blockIdx.y / tiles, g0 = (blockIdx.y % tiles) * GT;
+  const int gn = min(GT, G - g0);  // the tile's heads below G
   const int len = min(max(lengths[b], 0), S);
   const int start = split * chunk;
   if (start >= len) return;  // the merge reads only splits that hold rows
@@ -328,7 +375,8 @@ __global__ void __launch_bounds__(kThreads)
   const int n_tiles = (end - start + TILE - 1) / TILE;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, q4 = lane % 4;  // the thread's fragment row, column pair
+  const int g = lane / 4, q4 = lane % 4;  // the thread's fragment rows g
+                                          // (+ 8), its column pair
   const size_t bh = static_cast<size_t>(b) * Hkv + h;
   const bf16* kb = k + bh * S * D;
   const bf16* vb = v + bh * S * D;
@@ -353,16 +401,21 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_commit();
   };
 
-  // Q as the A fragment of m16n8k16: per k16 step the registers of row g,
-  // columns 2 q4 (+1) and 8 + 2 q4 (+1); rows 8..15 are zero.
-  uint32_t qa[KS][2];
+  // Q as the A fragment of m16n8k16: per k16 step the registers a0..a3 of
+  // rows g, g + 8, g, g + 8 at columns 2 q4 (+1), 2 q4 (+1), 8 + 2 q4 (+1),
+  // 8 + 2 q4 (+1); rows past the tile's heads are zero.
+  uint32_t qa[KS][4];
 #pragma unroll
   for (int s = 0; s < KS; ++s) {
-    qa[s][0] = qa[s][1] = 0u;
-    if (g < G) {
-      const bf16* qp = q + (bh * G + g) * D + 16 * s + 2 * q4;
-      qa[s][0] = *reinterpret_cast<const uint32_t*>(qp);
-      qa[s][1] = *reinterpret_cast<const uint32_t*>(qp + 8);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = g + 8 * hr;
+      qa[s][hr] = qa[s][2 + hr] = 0u;
+      if (hr < NR && row < gn) {
+        const bf16* qp = q + (bh * G + g0 + row) * D + 16 * s + 2 * q4;
+        qa[s][hr] = *reinterpret_cast<const uint32_t*>(qp);
+        qa[s][2 + hr] = *reinterpret_cast<const uint32_t*>(qp + 8);
+      }
     }
   }
 
@@ -371,7 +424,12 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-  float m_run = kNeg, l_run = 0.f;
+  float m_run[NR], l_run[NR];
+#pragma unroll
+  for (int hr = 0; hr < NR; ++hr) {
+    m_run[hr] = kNeg;
+    l_run[hr] = 0.f;
+  }
 
   // ldmatrix row addresses: lane l gives row l % 8 of matrix l / 8.  For
   // K (B of Q.K^T, n = key, k = d) the matrices are (keys 0-7 | 8-15) x
@@ -398,42 +456,54 @@ __global__ void __launch_bounds__(kThreads)
     for (int s = 0; s < KS; ++s) {
       uint32_t kf[4];
       ldmatrix_x4(kf, sk + k_row * RB + (16 * s + k_col) * 2);
-      const uint32_t a[4] = {qa[s][0], 0u, qa[s][1], 0u};
-      mma_bf16(sc[0], a, kf[0], kf[1]);
-      mma_bf16(sc[1], a, kf[2], kf[3]);
+      mma_bf16(sc[0], qa[s], kf[0], kf[1]);
+      mma_bf16(sc[1], qa[s], kf[2], kf[3]);
     }
 
-    // Online softmax of row g (the thread's c0, c1; rows 8..15 unused).
+    // Online softmax of rows g (the thread's c0, c1) and, when NR is 2,
+    // g + 8 (c2, c3); the rows of a tile of 8 or fewer end at 7.
     const int key0 = start + t * TILE + warp * kRows + 2 * q4;
-    float mx = kNeg;
+    float p[2][4];
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+    for (int hr = 0; hr < 2; ++hr) {
+      if (hr >= NR) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        sc[nt][e] *= scale_log2;
-        if (key0 + 8 * nt + e < end) mx = fmaxf(mx, sc[nt][e]);
+        for (int nt = 0; nt < 2; ++nt) p[nt][2 * hr] = p[nt][2 * hr + 1] = 0.f;
+        continue;
       }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m_run, mx);
-    const float corr = exp2f(m_run - m_new);
-    float p[2][2];
+      float mx = kNeg;
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+      for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-      for (int e = 0; e < 2; ++e)
-        p[nt][e] = key0 + 8 * nt + e < end ? exp2f(sc[nt][e] - m_new) : 0.f;
-    l_run = l_run * corr + (p[0][0] + p[0][1]) + (p[1][0] + p[1][1]);
-    m_run = m_new;
+        for (int e = 0; e < 2; ++e) {
+          sc[nt][2 * hr + e] *= scale_log2;
+          if (key0 + 8 * nt + e < end) mx = fmaxf(mx, sc[nt][2 * hr + e]);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[hr], mx);
+      const float corr = exp2f(m_run[hr] - m_new);
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      o[j][0] *= corr;
-      o[j][1] *= corr;
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          p[nt][2 * hr + e] = key0 + 8 * nt + e < end
+                                  ? exp2f(sc[nt][2 * hr + e] - m_new)
+                                  : 0.f;
+      l_run[hr] = l_run[hr] * corr + (p[0][2 * hr] + p[0][2 * hr + 1]) +
+                  (p[1][2 * hr] + p[1][2 * hr + 1]);
+      m_run[hr] = m_new;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        o[j][2 * hr] *= corr;
+        o[j][2 * hr + 1] *= corr;
+      }
     }
 
-    // O += P V: P (row g, keys) in bf16 as the A fragment, rows 8..15 zero.
-    const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), 0u,
-                            pack_bf16(p[1][0], p[1][1]), 0u};
+    // O += P V: P (rows g, g + 8; keys) in bf16 as the A fragment.
+    const uint32_t pa[4] = {
+        pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
+        pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
 #pragma unroll
     for (int dt = 0; dt < D / 16; ++dt) {
       uint32_t vf[4];
@@ -445,22 +515,27 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_wait<0>();
 
   // Merge the 4 warps: each row's denominator is spread over its quad.
-  l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
-  l_run += __shfl_xor_sync(0xffffffffu, l_run, 2);
-  if (g < G) {
-    if (q4 == 0) {
-      sm_m[warp][g] = m_run;
-      sm_l[warp][g] = l_run;
-    }
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      sm_o[warp][g][8 * j + 2 * q4] = o[j][0];
-      sm_o[warp][g][8 * j + 2 * q4 + 1] = o[j][1];
+  for (int hr = 0; hr < NR; ++hr) {
+    l_run[hr] += __shfl_xor_sync(0xffffffffu, l_run[hr], 1);
+    l_run[hr] += __shfl_xor_sync(0xffffffffu, l_run[hr], 2);
+    const int row = g + 8 * hr;
+    if (row < gn) {
+      if (q4 == 0) {
+        sm_m[warp][row] = m_run[hr];
+        sm_l[warp][row] = l_run[hr];
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        sm_o[warp][row][8 * j + 2 * q4] = o[j][2 * hr];
+        sm_o[warp][row][8 * j + 2 * q4 + 1] = o[j][2 * hr + 1];
+      }
     }
   }
   __syncthreads();
-  const size_t part = bh * gridDim.x + split;
-  for (int i = threadIdx.x; i < G * D; i += kThreads) {
+  // Partials of head g0 + gg of this split: (B, Hkv, splits, G) order.
+  const size_t part = (bh * gridDim.x + split) * G + g0;
+  for (int i = threadIdx.x; i < gn * D; i += kThreads) {
     const int gg = i / D, d = i % D;
     float mxw = kNeg;
 #pragma unroll
@@ -469,9 +544,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int w = 0; w < kWarps; ++w)
       sum += sm_o[w][gg][d] * exp2f(sm_m[w][gg] - mxw);
-    part_acc[(part * G + gg) * D + d] = sum;
+    part_acc[(part + gg) * D + d] = sum;
   }
-  if (threadIdx.x < G) {
+  if (threadIdx.x < gn) {
     const int gg = threadIdx.x;
     float mxw = kNeg;
 #pragma unroll
@@ -480,29 +555,30 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int w = 0; w < kWarps; ++w)
       tot += sm_l[w][gg] * exp2f(sm_m[w][gg] - mxw);
-    part_m[part * G + gg] = mxw;
-    part_l[part * G + gg] = tot;
+    part_m[part + gg] = mxw;
+    part_l[part + gg] = tot;
   }
 }
 
-template <int D, int G>
+template <int D, int GT>
 int launch(const void* q, const void* k, const void* v, const int* lengths,
            void* out, float* part_m, float* part_l, float* part_acc, int B,
-           int Hkv, int S, int splits, int chunk, float scale,
+           int Hkv, int G, int S, int splits, int chunk, float scale,
            cudaStream_t stream) {
-  auto kernel = decode_split_tc_kernel<D, G>;
+  auto kernel = decode_split_tc_kernel<D, GT>;
   constexpr int smem = smem_bytes(D);
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<dim3(splits, Hkv, B), kThreads, smem, stream>>>(
+  const int tiles = (G + GT - 1) / GT;
+  kernel<<<dim3(splits, Hkv * tiles, B), kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), lengths, part_m, part_l, part_acc, Hkv, S,
-      chunk, scale * kLog2e);
+      static_cast<const bf16*>(v), lengths, part_m, part_l, part_acc, Hkv, G,
+      tiles, S, chunk, scale * kLog2e);
   const int threads = G * D < 256 ? G * D : 256;
   decode_merge_kernel<bf16><<<B * Hkv, threads, 0, stream>>>(
-      part_m, part_l, part_acc, lengths, static_cast<bf16*>(out), Hkv, G, D,
-      S, splits, chunk);
+      part_m, part_l, part_acc, lengths, static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), Hkv, G, D, S, splits, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -511,11 +587,12 @@ int dispatch_g(int G, const void* q, const void* k, const void* v,
                const int* lengths, void* out, float* pm, float* pl, float* pa,
                int B, int Hkv, int S, int splits, int chunk, float scale,
                cudaStream_t st) {
-  switch (G) {
-    case 1: return launch<D, 1>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st);
-    case 2: return launch<D, 2>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st);
-    case 4: return launch<D, 4>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st);
-    case 8: return launch<D, 8>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st);
+  switch (group_tile(G, 16)) {
+    case 1: return launch<D, 1>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, G, S, splits, chunk, scale, st);
+    case 2: return launch<D, 2>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, G, S, splits, chunk, scale, st);
+    case 4: return launch<D, 4>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, G, S, splits, chunk, scale, st);
+    case 8: return launch<D, 8>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, G, S, splits, chunk, scale, st);
+    case 16: return launch<D, 16>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, G, S, splits, chunk, scale, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -535,19 +612,21 @@ int dispatch_d(int D, int G, const void* q, const void* k, const void* v,
 
 }  // namespace tc
 
-template <typename T, int D, int G>
+template <typename T, int D, int GT>
 void launch(const void* q, const void* k, const void* v, const int* lengths,
             void* out, float* part_m, float* part_l, float* part_acc, int B,
-            int Hkv, int S, int splits, int chunk, float scale,
+            int Hkv, int G, int S, int splits, int chunk, float scale,
             cudaStream_t stream) {
-  decode_split_kernel<T, D, G><<<dim3(splits, Hkv, B), kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, part_m, part_l, part_acc, Hkv, S,
-      chunk, scale * kLog2e);
+  const int tiles = (G + GT - 1) / GT;
+  decode_split_kernel<T, D, GT>
+      <<<dim3(splits, Hkv * tiles, B), kThreads, 0, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), lengths, part_m, part_l, part_acc, Hkv,
+          G, tiles, S, chunk, scale * kLog2e);
   const int threads = G * D < 256 ? G * D : 256;
   decode_merge_kernel<T><<<B * Hkv, threads, 0, stream>>>(
-      part_m, part_l, part_acc, lengths, static_cast<T*>(out), Hkv, G, D, S,
-      splits, chunk);
+      part_m, part_l, part_acc, lengths, static_cast<const T*>(v),
+      static_cast<T*>(out), Hkv, G, D, S, splits, chunk);
 }
 
 template <typename T, int D>
@@ -555,11 +634,11 @@ bool dispatch_g(int G, const void* q, const void* k, const void* v,
                 const int* lengths, void* out, float* pm, float* pl,
                 float* pa, int B, int Hkv, int S, int splits, int chunk,
                 float scale, cudaStream_t st) {
-  switch (G) {
-    case 1: launch<T, D, 1>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st); return true;
-    case 2: launch<T, D, 2>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st); return true;
-    case 4: launch<T, D, 4>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st); return true;
-    case 8: launch<T, D, 8>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st); return true;
+  switch (group_tile(G, 8)) {
+    case 1: launch<T, D, 1>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, G, S, splits, chunk, scale, st); return true;
+    case 2: launch<T, D, 2>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, G, S, splits, chunk, scale, st); return true;
+    case 4: launch<T, D, 4>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, G, S, splits, chunk, scale, st); return true;
+    case 8: launch<T, D, 8>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, G, S, splits, chunk, scale, st); return true;
   }
   return false;
 }
@@ -581,15 +660,17 @@ bool dispatch_d(int D, int G, const void* q, const void* k, const void* v,
 }  // namespace
 
 // The SIMT route.  q (B, Hkv, G, D), k/v (B, Hkv, S, D), out (B, Hkv, G,
-// D): contiguous, of one dtype (0 float32, 1 bfloat16).  lengths (B,) int32.  Partials:
-// part_m/part_l (B, Hkv, splits, G), part_acc (B, Hkv, splits, G, D) float32.
-// Returns cudaGetLastError() after both launches, or cudaErrorInvalidValue
-// for a dtype, D or G the kernel is not built for.
+// D): contiguous, of one dtype (0 float32, 1 bfloat16), any G >= 1, the
+// query heads in tiles of group_tile(G, 8).  lengths (B,) int32.
+// Partials: part_m/part_l (B, Hkv, splits, G), part_acc (B, Hkv, splits,
+// G, D) float32.  Returns cudaGetLastError() after both launches, or
+// cudaErrorInvalidValue for a dtype, D or G the kernel is not built for.
 extern "C" int repro_decode_attn(const void* q, const void* k, const void* v,
                                  const void* lengths, void* out, void* part_m,
                                  void* part_l, void* part_acc, int B, int Hkv,
                                  int G, int S, int D, int splits, int chunk,
                                  float scale, int dtype, void* stream) {
+  if (G < 1 || S < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int* len = static_cast<const int*>(lengths);
   float* pm = static_cast<float*>(part_m);
   float* pl = static_cast<float*>(part_l);
@@ -605,9 +686,10 @@ extern "C" int repro_decode_attn(const void* q, const void* k, const void* v,
 }
 
 // The tensor-core route: as repro_decode_attn with q/k/v bfloat16 and
-// 16-byte aligned, and (splits, chunk) from split_plan_tc.  Returns
-// cudaGetLastError() after both launches, or cudaErrorInvalidValue for a
-// D or G the kernel is not built for.
+// 16-byte aligned, the query heads in tiles of group_tile(G, 16), and
+// (splits, chunk) from split_plan_tc.  Returns cudaGetLastError() after
+// both launches, or cudaErrorInvalidValue for a D or G the kernel is not
+// built for.
 extern "C" int repro_decode_attn_tc(const void* q, const void* k,
                                     const void* v, const void* lengths,
                                     void* out, void* part_m, void* part_l,
@@ -617,7 +699,7 @@ extern "C" int repro_decode_attn_tc(const void* q, const void* k,
   const uintptr_t any = reinterpret_cast<uintptr_t>(q) |
                         reinterpret_cast<uintptr_t>(k) |
                         reinterpret_cast<uintptr_t>(v);
-  if (any % 16 != 0 || chunk % tc::TILE != 0)
+  if (any % 16 != 0 || chunk % tc::TILE != 0 || G < 1 || S < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   return tc::dispatch_d(D, G, q, k, v, static_cast<const int*>(lengths), out,
                         static_cast<float*>(part_m),

@@ -4,8 +4,8 @@
 Two routes, one C entry point each; ``route`` picks one from the dtype,
 the head shape and the pointers' alignment before the launch:
 
-* ``tensor_core``: bfloat16 with head_dim in ``HEAD_DIMS`` and H/Hkv in
-  ``GROUPS``, 16-byte aligned q/k/v.  A pipelined flash-decode on
+* ``tensor_core``: bfloat16 with head_dim in ``HEAD_DIMS``, any group
+  G = H / Hkv, 16-byte aligned q/k/v.  A pipelined flash-decode on
   ``mma.sync``: each warp streams its keys through a ring of cp.async
   stages; splits of ``split_plan_tc``.
 * ``simt``: float32 (whose 2e-4 tolerance TF32 would break) and every
@@ -14,7 +14,10 @@ the head shape and the pointers' alignment before the launch:
 
 On both the S axis is split across blocks so that a decode batch, which
 has only B * Hkv (batch, kv-head) pairs, still fills the card; a second
-launch in the same C call merges the splits.
+launch in the same C call merges the splits.  Both take any G: a block
+serves one tile of ``group_tile(G, kind)`` query heads, and a grid axis
+runs over the ``cdiv(G, tile)`` tiles of a KV head.  A row of length 0
+gets the mean of its V over all S rows, as the plain version gives it.
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ from ..common import cdiv, check_on_card
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
-GROUPS = (1, 2, 4, 8)
+# Query-head tiles each route's kernels are instantiated for (group_tile)
+TILES = {"tensor_core": (1, 2, 4, 8, 16), "simt": (1, 2, 4, 8)}
 _THREADS = 128            # kThreads in the source
 _KEYS = 4                 # kKeys in the source
 BLOCKS_PER_SM = 8         # split target: this many split blocks per SM
@@ -61,12 +65,22 @@ def _entries():
 def route(D: int, G: int, dtype: torch.dtype, aligned: bool = True) -> str:
     """The route of a call with head_dim ``D``, ``G`` query heads per KV
     head and ``dtype`` q/k/v; ``aligned`` says whether q, k and v are
-    16-byte aligned.  Every call the tensor-core kernel is not built for
-    goes to the SIMT kernel, which refuses what it cannot take either."""
-    if dtype == torch.bfloat16 and D in HEAD_DIMS and G in GROUPS \
-            and aligned:
+    16-byte aligned.  bfloat16 at a head_dim it is built for goes to the
+    tensor cores whatever G is: up to 16 heads are the rows of one m16
+    tile, more run as several tiles (``group_tile``), each reading K/V
+    once.  Every other call goes to the SIMT kernel, which refuses what it
+    cannot take either."""
+    del G     # every group runs on either route
+    if dtype == torch.bfloat16 and D in HEAD_DIMS and aligned:
         return "tensor_core"
     return "simt"
+
+
+def group_tile(G: int, kind: str) -> int:
+    """Query heads a block of route ``kind`` serves for a group of ``G``:
+    the smallest tile the kernels are built for that holds G, else the
+    largest (as ``group_tile`` in the source)."""
+    return next((t for t in TILES[kind] if t >= G), TILES[kind][-1])
 
 
 def split_plan(B: int, Hkv: int, S: int, D: int, dtype: torch.dtype,
@@ -92,6 +106,16 @@ def split_plan_tc(B: int, Hkv: int, S: int, n_sms: int):
     return cdiv(S, chunk), chunk
 
 
+def plan(kind: str, B: int, Hkv: int, G: int, S: int, D: int,
+         dtype: torch.dtype, n_sms: int):
+    """(splits, chunk) of a call on route ``kind``: its split plan over the
+    B * Hkv * tiles blocks a split has."""
+    pairs = Hkv * cdiv(G, group_tile(G, kind))
+    if kind == "tensor_core":
+        return split_plan_tc(B, pairs, S, n_sms)
+    return split_plan(B, pairs, S, D, dtype, n_sms)
+
+
 def decode_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor, scale: float
                      ) -> Tuple[torch.Tensor, str]:
@@ -105,9 +129,9 @@ def decode_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if lengths.dtype != torch.int32:
         raise TypeError(f"lengths must be int32, got {lengths.dtype}")
-    if D not in HEAD_DIMS or G not in GROUPS:
+    if D not in HEAD_DIMS or G < 1:
         raise ValueError(f"decode_attn kernel is built for head_dim in "
-                         f"{HEAD_DIMS} and H/Hkv in {GROUPS}, got D={D}, G={G}")
+                         f"{HEAD_DIMS} and H/Hkv >= 1, got D={D}, G={G}")
     if k.shape != (B, Hkv, S, D) or v.shape != k.shape or \
             lengths.shape != (B,):
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
@@ -117,9 +141,8 @@ def decode_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.data_ptr() % 16:     # the kernel reads 16-byte vectors
             raise ValueError(f"{name} must be 16-byte aligned")
     kind = route(D, G, q.dtype)    # every pointer is 16-byte aligned here
-    n_sms = _sm_count(q.device.index)
-    splits, chunk = (split_plan_tc(B, Hkv, S, n_sms) if kind == "tensor_core"
-                     else split_plan(B, Hkv, S, D, q.dtype, n_sms))
+    splits, chunk = plan(kind, B, Hkv, G, S, D, q.dtype,
+                         _sm_count(q.device.index))
     out = torch.empty_like(q)
     # one float32 scratch for the partials: max and denominator
     # (B, Hkv, splits, G) each, then the sums (B, Hkv, splits, G, D)

@@ -2,7 +2,9 @@
 PyTorch version on CPU tensors.
 
 ``wkv6.launches`` counts the kernel's launches, so a run can show that
-its main path went through the kernel.
+its main path went through the kernel, and ``wkv6.launches_by_route`` the
+launches of each route (``kernel.route``: ``step`` or ``chunked``; the
+chunked route's three kernels are one C call and count as one launch).
 """
 from __future__ import annotations
 
@@ -10,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from .kernel import wkv6_cuda
+from .kernel import ROUTES, wkv6_cuda
 from .ref import wkv6_ref
 
 
@@ -22,9 +24,11 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         return wkv6_ref(r, k, v, w, u, state0)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6 runs on CPU or CUDA tensors, not {r.device}")
-    out = wkv6_cuda(r, k, v, w, u, state0)
+    out, state, kind = wkv6_cuda(r, k, v, w, u, state0)
     wkv6.launches += 1
-    return out
+    wkv6.launches_by_route[kind] += 1
+    return out, state
 
 
 wkv6.launches = 0
+wkv6.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -22,6 +22,8 @@ from repro_torch.kernels.qgemm_int8.kernel import route as qgemm_route
 from repro_torch.kernels.qgemm_int8.ops import qgemm_int8
 from repro_torch.kernels.qgemm_int8.ref import (int_matmul_ref, qgemm_ref,
                                                 quantize_rowwise)
+from repro_torch.kernels.wkv6.kernel import CHUNK_T
+from repro_torch.kernels.wkv6.kernel import route as wkv6_route
 from repro_torch.kernels.wkv6.ops import wkv6
 from repro_torch.kernels.wkv6.ref import wkv6_ref
 
@@ -60,9 +62,9 @@ def test_decode_attn_kernel_matches_plain(S, dtype):
 @pytest.mark.parametrize("H,Hkv,D,S", [(8, 8, 16, 77), (8, 4, 32, 300),
                                        (8, 4, 128, 513), (32, 4, 64, 129)])
 def test_decode_attn_kernel_other_shapes(H, Hkv, D, S):
-    """Every head_dim and group size the kernel is built for (G = 1, 2, 2,
-    8), in float32 at the 2e-4 tolerance, with a row of length 0 that must
-    come out finite (its value is unspecified)."""
+    """Every head_dim and group sizes G = 1, 2, 2, 8, in float32 at the
+    2e-4 tolerance, with a row of length 0, which must give the plain
+    version's value: the mean of its V over all S rows."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(D + S)
@@ -74,7 +76,7 @@ def test_decode_attn_kernel_other_shapes(H, Hkv, D, S):
     got = decode_attn(q, k, v, lens)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
-    torch.testing.assert_close(got[:2], decode_attn_ref(q, k, v, lens)[:2],
+    torch.testing.assert_close(got, decode_attn_ref(q, k, v, lens),
                                rtol=2e-4, atol=2e-4)
 
 
@@ -83,10 +85,10 @@ def test_decode_attn_kernel_other_shapes(H, Hkv, D, S):
 @pytest.mark.parametrize("G", [1, 2, 4, 8])
 def test_decode_attn_tensor_core_matches_plain(G, D):
     """The tensor-core route (mma.sync flash-decode) for every head_dim and
-    group size it is built for, in bf16 within 2e-2 of the plain version
-    (outputs below 2 may land one bf16 step apart), at ragged lengths that
-    straddle its 16-key warp slices and 64-key steps, S itself, and 0,
-    whose row must come out as zeros."""
+    the group sizes of one tile up to 8, in bf16 within 2e-2 of the plain
+    version (outputs below 2 may land one bf16 step apart), at ragged
+    lengths that straddle its 16-key warp slices and 64-key steps, S
+    itself, and 0, whose row must give the plain version's mean of V."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     S, Hkv = 700, 2
@@ -103,10 +105,70 @@ def test_decode_attn_tensor_core_matches_plain(G, D):
     torch.cuda.synchronize()
     assert decode_attn.launches_by_route["tensor_core"] == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
-    assert torch.equal(got[0], torch.zeros_like(got[0]))
-    torch.testing.assert_close(got[1:].float(),
-                               decode_attn_ref(q, k, v, lens)[1:].float(),
+    torch.testing.assert_close(got.float(),
+                               decode_attn_ref(q, k, v, lens).float(),
                                rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [600, 2048])
+def test_decode_attn_length_zero_matches_plain(S, dtype):
+    """Rows of length 0 on both routes (bf16 on the tensor cores, float32
+    on SIMT), at the serving shape and at an S that is no multiple of 64
+    or 512: the mean of V over all S rows, as the plain version gives it,
+    beside rows of other lengths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(S + 1)
+    B, H, Hkv, D = 4, 32, 8, 64
+    q, k, v = (torch.from_numpy(rng.normal(size=shape)).to("cuda", dtype)
+               for shape in ((B, H, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+    lens = torch.tensor([0, S, 0, 1], dtype=torch.int32, device="cuda")
+    kind = attn_route(D, H // Hkv, dtype)
+    assert kind == ("simt" if dtype == torch.float32 else "tensor_core")
+    before = decode_attn.launches_by_route[kind]
+    got = decode_attn(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert decode_attn.launches_by_route[kind] == before + 1
+    want = decode_attn_ref(q, k, v, lens)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    mean = v.float().mean(2).repeat_interleave(H // Hkv, 1)
+    torch.testing.assert_close(got[[0, 2]].float(), mean[[0, 2]],
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,Hkv,D", [(3, 8, 128), (5, 8, 128), (48, 1, 128),
+                                     (16, 2, 64), (12, 2, 32), (48, 2, 16)])
+def test_decode_attn_any_group_matches_plain(G, Hkv, D, dtype):
+    """Groups the kernels have no tile of their own for: llama3.2-3b's 3,
+    llama4-maverick's 5, granite-34b's 48 (at their head_dim 128), a full
+    and a padded m16 tile (16, 12) and 48 at D 16.  Each runs on the route
+    the rule gives (bf16 on the tensor cores, float32 on SIMT) and agrees
+    with the plain version at ragged lengths and at length 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    S = 700
+    lens_list = [0, 1, 65, S, 333]
+    B = len(lens_list)
+    rng = np.random.default_rng(G * D + Hkv)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape)).to("cuda", dtype)
+               for shape in ((B, G * Hkv, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+    lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+    kind = attn_route(D, G, dtype)
+    assert kind == ("simt" if dtype == torch.float32 else "tensor_core")
+    before = decode_attn.launches_by_route[kind]
+    got = decode_attn(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert decode_attn.launches_by_route[kind] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(),
+                               decode_attn_ref(q, k, v, lens).float(),
+                               rtol=tol, atol=tol)
 
 
 @pytest.mark.gpu
@@ -146,13 +208,14 @@ def test_smoke_model_on_card_matches_cpu():
     torch.testing.assert_close(outs[1][1], outs[0][1], rtol=1e-4, atol=1e-4)
 
 
-def _wkv6_inputs(B, T, H, D, dtype, seed):
+def _wkv6_inputs(B, T, H, D, dtype, seed, decays=(0.9, 0.999)):
     """r, k, v, w (in ``dtype``), u and a nonzero state0 (float32) on the
-    card; w uniform in (0.9, 0.999), so the state carries many steps."""
+    card; w uniform in ``decays``, by default (0.9, 0.999), so the state
+    carries many steps."""
     rng = np.random.default_rng(seed)
     r, k = (rng.normal(size=(B, T, H, D)) * 0.5 for _ in range(2))
     v = rng.normal(size=(B, T, H, D))
-    w = rng.uniform(0.9, 0.999, (B, T, H, D))
+    w = rng.uniform(*decays, (B, T, H, D))
     u = rng.normal(size=(H, D)) * 0.3
     s0 = rng.normal(size=(B, H, D, D))
     return ([torch.from_numpy(a).to("cuda", dtype) for a in (r, k, v, w)]
@@ -166,7 +229,8 @@ def _wkv6_close(got, want, dtype):
     tol = (2.0 ** -7, 1e-4) if dtype == torch.bfloat16 else (1e-4, 1e-4)
     torch.testing.assert_close(got[0].float(), want[0].float(),
                                rtol=tol[0], atol=tol[1])
-    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got[1], want[1].float(), rtol=1e-4,
+                               atol=1e-4)
 
 
 @pytest.mark.gpu
@@ -190,6 +254,38 @@ def test_wkv6_kernel_matches_plain(D, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_wkv6_step_route_matches_plain(D, dtype):
+    """The step route's C entry at T = 300, where the rule gives the
+    chunked route: every D, from a nonzero state0 and from zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.wkv6 import kernel as wk
+
+    def step(r, k, v, w, u, s0=None):
+        Bs, Ts, Hs, Ds = r.shape
+        out = torch.empty_like(r)
+        state = torch.empty((Bs, Hs, Ds, Ds), dtype=torch.float32,
+                            device=r.device)
+        err = wk._entries()["step"](
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), None if s0 is None else s0.data_ptr(),
+            out.data_ptr(), state.data_ptr(), Bs, Ts, Hs, Ds,
+            wk._DTYPES[r.dtype], torch.cuda.current_stream().cuda_stream)
+        assert err == 0
+        return out, state
+
+    r, k, v, w, u, s0 = _wkv6_inputs(2, 300, 3, D, dtype, seed=D + 1)
+    assert wkv6_route(2, 300, 3, D) == "chunked"
+    got = step(r, k, v, w, u, s0)
+    got0 = step(r, k, v, w, u)
+    torch.cuda.synchronize()
+    _wkv6_close(got, wkv6_ref(r, k, v, w, u, s0), dtype)
+    _wkv6_close(got0, wkv6_ref(r, k, v, w, u), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wkv6_kernel_state_chaining(dtype):
     """Two halves with the carried state give the whole run's second half
     and final state, on the card."""
@@ -203,6 +299,92 @@ def test_wkv6_kernel_state_chaining(dtype):
                   v[:, 40:].contiguous(), w[:, 40:].contiguous(), u, s1)
     torch.cuda.synchronize()
     _wkv6_close((h2, s2), (full[0][:, 40:], full[1]), dtype)
+
+
+# Decays of the chunked route's checks, and whether each is held against
+# the plain version in float64.  Near 1 the state sums a thousand steps
+# and outputs reach about 200; the plain version's own float32 rounding
+# then reaches 2e-4 of the float64 value (the chunked form 8e-5, on the
+# CPU at B 1, T 1000, H 2, D 64), so the exact value is the yardstick.
+WKV6_DECAYS = {"near0": ((1e-4, 0.05), False), "near1": ((0.999, 0.99999),
+                                                          True),
+               "mid": ((0.9, 0.999), False)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("T,decays", [
+    (1024, "near0"), (1024, "near1"), (777, "mid"),
+    (CHUNK_T + 1, "mid")])
+def test_wkv6_chunked_matches_plain(T, decays, D, dtype):
+    """The chunked route at a batch-1 prefill of rwkv6-1.6b's longest
+    prompt with decays near 0 and near 1, at T 777 and just above the
+    route's threshold (a short last chunk each), from a nonzero state0,
+    against the plain version at the step kernel's tolerances."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng_decays, exact = WKV6_DECAYS[decays]
+    r, k, v, w, u, s0 = _wkv6_inputs(1, T, 4, D, dtype, seed=T + D,
+                                     decays=rng_decays)
+    assert wkv6_route(1, T, 4, D) == "chunked"
+    before = wkv6.launches_by_route["chunked"]
+    got = wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert wkv6.launches_by_route["chunked"] == before + 1
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    wide = torch.float64 if exact else torch.float32
+    want = wkv6_ref(*(a.to(wide) for a in (r, k, v, w, u, s0)))
+    _wkv6_close(got, (want[0].to(dtype), want[1]), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_state_chains_across_routes(dtype):
+    """A prefill on the chunked route, then three decode steps on the step
+    route, each from the state the last call left: the outputs and final
+    state of the whole run, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    T, n_steps = 1000, 3
+    r, k, v, w, u, s0 = _wkv6_inputs(2, T + n_steps, 4, 64, dtype, seed=9)
+    before = dict(wkv6.launches_by_route)
+    outs = []
+    out, state = wkv6(*(a[:, :T].contiguous() for a in (r, k, v, w)), u, s0)
+    outs.append(out)
+    for t in range(T, T + n_steps):
+        out, state = wkv6(*(a[:, t:t + 1].contiguous() for a in (r, k, v, w)),
+                          u, state)
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert {kind: n - before[kind] for kind, n in
+            wkv6.launches_by_route.items()} == {"chunked": 1,
+                                                "step": n_steps}
+    _wkv6_close((torch.cat(outs, 1), state), wkv6_ref(r, k, v, w, u, s0),
+                dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,want", [(8, 1, "step"), (1, 32, "step"),
+                                      (1, CHUNK_T - 1, "step"),
+                                      (1, CHUNK_T, "chunked"),
+                                      (3, 300, "chunked")])
+def test_wkv6_counts_launches_by_route(B, T, want):
+    """Each call counts one launch, on the route the rule gives it (the
+    chunked route's three kernels are one launch), and agrees with the
+    plain version there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    r, k, v, w, u, s0 = _wkv6_inputs(B, T, 4, 64, torch.bfloat16, seed=T)
+    assert wkv6_route(B, T, 4, 64) == want
+    before = dict(wkv6.launches_by_route), wkv6.launches
+    got = wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before[1] + 1
+    assert {kind: n - before[0][kind] for kind, n in
+            wkv6.launches_by_route.items()} == {
+                kind: int(kind == want) for kind in before[0]}
+    _wkv6_close(got, wkv6_ref(r, k, v, w, u, s0), torch.bfloat16)
 
 
 @pytest.mark.gpu
