@@ -32,7 +32,19 @@
    runs on the redesigned route, the kernel that route replaced is held
    and timed on the same inputs (prev_ms).  torch._int_mm is timed in
    every layout of b it accepts.
-4. Serves llama3.2-1b and then rwkv6-1.6b at full width and depth (random
+4. The CGRA flow (phase_cgra): compiles the ten-kernel verification set
+   (six Table-I kernels at small dims, four DSL kernels) on the host with
+   repro_torch.core.Toolchain, verifies each over 1024 seeds on the card
+   (golden oracle; the card's banks for seeds 0-3 against the CPU's),
+   the reloaded artifacts over 256 seeds (the torch DFG oracle on the
+   card, itself held against the numpy oracle), dwconv and requant-int8
+   stacked over fabrics of 4, 8 and 16 registers, and full-size
+   CONV-U-C-1 over 64 seeds; profiles one 1024-image simulate_batch;
+   runs the flow's bench rows (repro_torch.bench.bench_sim_throughput,
+   bench_verify_batched) and holds them against those steps.
+   Every result is compared word for word; none of the five kernels
+   may launch on this path.
+5. Serves llama3.2-1b and then rwkv6-1.6b at full width and depth (random
    weights from a seed) through the port's Engine: 12 requests over 8
    slots each, so slots are reused, and checks that the model's kernel
    ran once per layer in every decode step (decode_attn, on the tensor
@@ -40,7 +52,7 @@
    step route, each prefill on the route its length gives).  Then holds
    one decode step's logits, kernel-backed, against the same step with
    the plain version, and profiles a few decode steps.
-5. Prints the kernels as one JSON line, the card's name and power limit,
+6. Prints the kernels as one JSON line, the card's name and power limit,
    and as its last line {"ok": true, "device": {...}}.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -103,6 +115,11 @@ PROFILE_STEPS = 4
 TABLE1_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-4)}
 GEMM_DECODE_M = 8
 GEMM_RAGGED = (1000, 2000, 777)
+# The CGRA flow's verification set and its seed batches (phase_cgra)
+CGRA_SET = ("GEMM", "GEMM-U", "GEMM-U-C", "CONV", "CONV-U-C-1",
+            "CONV-U-C-2", "dwconv", "avgpool2x2", "gemm-bias-relu",
+            "requant-int8")
+CGRA_SEEDS = {"fleet": 1024, "reloaded": 256, "stacked": 256, "full": 64}
 
 
 def card_line() -> str:
@@ -1095,6 +1112,255 @@ def profile_steps(eng, card: str, kernel: str) -> None:
               f"{e.count / PROFILE_STEPS:.0f} launches/step: {e.key[:100]}")
 
 
+class _StageClock:
+    """Seconds ``verify_batch`` spends in its three stages — host test
+    data, the DFG check (the torch oracle) and the simulation — by timing
+    the functions it calls while the block runs (outermost call only)."""
+
+    STAGES = {"data": (("verify", "generate_test_data_batch"),
+                       ("toolchain.CompiledKernel", "random_banks")),
+              "dfg": (("verify", "check_dfg_semantics_batch"),
+                      ("verify", "reference_banks_batch")),
+              "sim": (("toolchain.CompiledKernel", "run_batch"),
+                      ("simulator", "simulate_multi"))}
+
+    def __init__(self):
+        self.s = dict.fromkeys(self.STAGES, 0.0)
+
+    def __enter__(self):
+        import importlib
+        self._saved = []
+        depth = dict.fromkeys(self.STAGES, 0)
+        for stage, places in self.STAGES.items():
+            for where, attr in places:
+                mod, _, cls = where.partition(".")
+                owner = importlib.import_module(f"repro_torch.core.{mod}")
+                owner = getattr(owner, cls) if cls else owner
+                fn = getattr(owner, attr)
+
+                def timed(*a, _fn=fn, _stage=stage, **kw):
+                    depth[_stage] += 1
+                    t0 = time.perf_counter()
+                    try:
+                        return _fn(*a, **kw)
+                    finally:
+                        depth[_stage] -= 1
+                        if not depth[_stage]:
+                            self.s[_stage] += time.perf_counter() - t0
+                self._saved.append((owner, attr, fn))
+                setattr(owner, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in reversed(self._saved):
+            setattr(owner, attr, fn)
+
+
+def _sim_work(ck, images: int):
+    """Simulated cycles x images of one run, (exact, bucketed): the cycle
+    count of an invocation (the loop's own, and the runner signature's
+    bucket), times invocations, times images."""
+    from repro_torch.core import simcache
+    n = ck.cfg.n_cycles(ck.mapped_iters)
+    k = len(ck.invocations) * images
+    return n * k, simcache.bucket_cycles(n) * k
+
+
+def _cgra_step(step: str, what: str, clock: _StageClock, wall: float,
+               runs, verifies: int, card: str) -> None:
+    """One step line; ``runs``: (compiled kernel, images) pairs."""
+    sim = clock.s["sim"]
+    work = [_sim_work(ck, n) for ck, n in runs]
+    exact, bucketed = (sum(w[i] for w in work) for i in (0, 1))
+    print(f"[cgra] step {step} {what}: {wall:.2f} s (host test data "
+          f"{clock.s['data']:.2f} s, DFG check {clock.s['dfg']:.2f} s, "
+          f"simulation {sim:.2f} s = {exact / sim:.4g} cycles*images/s "
+          f"on the exact cycles, {bucketed / sim:.4g} on the bucketed), "
+          f"{verifies / wall:.1f} verifies/s [{card}]")
+
+
+def phase_cgra(card: str) -> None:
+    """The CGRA flow of repro_torch.core on the card: compile on the host,
+    verify over seed fleets, reloaded artifacts, a stacked RF cohort and
+    one full-size kernel, each word for word; then a profile of one
+    batched simulation.  Raises on any mismatch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.bench import (OPS, RF_COHORT, VERIFY_SEEDS,
+                                   bench_sim_throughput,
+                                   bench_verify_batched, rf_cohort_arch)
+    from repro_torch.core import simcache, table1_kernels
+    from repro_torch.core.pool import reset_pool
+    from repro_torch.core.refexec import reference_execute_torch
+    from repro_torch.core.simulator import simulate_batch
+    from repro_torch.core.toolchain import (CompiledKernel, Toolchain,
+                                            verify_stacked)
+    from repro_torch.core.verify import generate_test_data_batch
+    from repro_torch.frontend.library import dsl_kernels
+    from repro_torch.kernels.wkv6.ops import wkv6
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    five = {**OPS, "wkv6": wkv6}
+    for op in five.values():
+        op.launches = 0
+    try:
+        # 1. compile the verification set on the host
+        specs = {**table1_kernels(small=True), **dsl_kernels()}
+        tc = Toolchain(cache_dir="")
+        cks = {}
+        for name in CGRA_SET:
+            t0 = time.perf_counter()
+            cks[name] = tc.compile(specs[name])
+            print(f"[cgra] step 1 compiled {name}: II {cks[name].II}, "
+                  f"{_sim_work(cks[name], 1)[0]} cycles an image, "
+                  f"{time.perf_counter() - t0:.2f} s")
+
+        # 2. the verification fleet: golden oracle, 1024 seeds a kernel
+        n = CGRA_SEEDS["fleet"]
+        for name, ck in cks.items():
+            init = [generate_test_data_batch(ck.spec, [s]).init_row(0)
+                    for s in range(4)]
+            want, got = ck.run_batch(init, device="cpu"), \
+                ck.run_batch(init, device=dev)
+            for i, (w, g) in enumerate(zip(want, got)):
+                for bank in w:
+                    if not np.array_equal(w[bank], g[bank]):
+                        raise AssertionError(f"{name} seed {i}: card and "
+                                             f"CPU banks differ in {bank}")
+        with _StageClock() as clock:
+            t0 = time.perf_counter()
+            for ck in cks.values():
+                ck.verify_batch(range(n), device=dev)
+            wall = time.perf_counter() - t0
+        _cgra_step("2", f"verify_batch of {len(cks)} kernels x {n} seeds "
+                   "(golden oracle; seeds 0-3 equal to the CPU's)", clock,
+                   wall, [(ck, n) for ck in cks.values()], len(cks) * n,
+                   card)
+        step2_rate = len(cks) * n / wall
+
+        # 3. reloaded artifacts: the torch DFG oracle on the card
+        n = CGRA_SEEDS["reloaded"]
+        loaded = [CompiledKernel.from_json(ck.to_json())
+                  for ck in cks.values()]
+        for ck in loaded:
+            assert ck.spec is None
+            init = [ck.random_banks(s) for s in range(8)]
+            stacked = {k: np.stack([b[k] for b in init]) for k in init[0]}
+            bits = ck.arch.datapath_bits
+            got = reference_execute_torch(ck.dfg, ck.mapped_iters, stacked,
+                                          ck.invocations, bits, device=dev)
+            want = ck.dfg.reference_execute_batch(
+                ck.mapped_iters, stacked, ck.invocations, bits=bits)
+            for bank in want:
+                if not np.array_equal(got[bank], want[bank]):
+                    raise AssertionError(f"{ck.name}: the card's DFG oracle "
+                                         f"differs from numpy in {bank}")
+        with _StageClock() as clock:
+            t0 = time.perf_counter()
+            for ck in loaded:
+                ck.verify_batch(range(n), device=dev)
+            wall = time.perf_counter() - t0
+        _cgra_step("3", f"verify_batch of {len(loaded)} reloaded artifacts "
+                   f"x {n} seeds (torch DFG oracle on the card, 8 seeds "
+                   "equal to numpy's)", clock, wall,
+                   [(ck, n) for ck in loaded], len(loaded) * n, card)
+
+        # 4. stacked: dwconv and requant-int8 over an RF 4/8/16 cohort
+        n = CGRA_SEEDS["stacked"]
+        cohort = [tc.compile(dsl_kernels(rf_cohort_arch(rf))[name])
+                  for name in ("dwconv", "requant-int8") for rf in RF_COHORT]
+        with _StageClock() as clock:
+            t0 = time.perf_counter()
+            verify_stacked(cohort, range(n), device=dev)
+            wall = time.perf_counter() - t0
+        multi = sorted({(s.II, s.RF, s.batch) for s in simcache._entries
+                        if s.multi})
+        if not multi:
+            raise AssertionError("verify_stacked built no multi-"
+                                 "architecture signature")
+        _cgra_step("4", f"verify_stacked of {len(cohort)} kernels (RF "
+                   f"{'/'.join(map(str, RF_COHORT))}) x {n} seeds, multi "
+                   f"signatures (II, RF, rows) {multi}, simcache "
+                   f"{simcache.stats()}", clock, wall,
+                   [(ck, n) for ck in cohort], len(cohort) * n, card)
+
+        # 5. full size: CONV-U-C-1 at the paper's Table-I dims
+        n = CGRA_SEEDS["full"]
+        t0 = time.perf_counter()
+        full = tc.compile(table1_kernels(small=False)["CONV-U-C-1"])
+        print(f"[cgra] step 5 compiled full-size CONV-U-C-1: II {full.II}, "
+              f"{len(full.invocations)} invocations, "
+              f"{_sim_work(full, 1)[0]} cycles an image "
+              f"({_sim_work(full, 1)[1]} bucketed), "
+              f"{time.perf_counter() - t0:.2f} s")
+        with _StageClock() as clock:
+            t0 = time.perf_counter()
+            full.verify_batch(range(n), device=dev)
+            wall = time.perf_counter() - t0
+        _cgra_step("5", f"verify_batch of full-size CONV-U-C-1 x {n} seeds",
+                   clock, wall, [(full, n)], n, card)
+
+        # 6. profile one simulate_batch of GEMM over 1024 images
+        ck = cks["GEMM"]
+        n = CGRA_SEEDS["fleet"]
+        data = generate_test_data_batch(ck.spec, range(n))
+        init = [data.init_row(i) for i in range(n)]
+        args = (ck.cfg, init, ck.invocations, ck.mapped_iters)
+        simulate_batch(*args, device=dev)
+        t0 = time.perf_counter()
+        simulate_batch(*args, device=dev)
+        plain_s = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            simulate_batch(*args, device=dev)
+            wall_s = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")
+                   and getattr(e, "self_device_time_total", 0) > 0]
+        busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
+        n_launch = sum(e.count for e in kernels)
+        cycles = _sim_work(ck, 1)[0]
+        print(f"[cgra] step 6 simulate_batch of GEMM x {n} images, "
+              f"{cycles} cycles: {plain_s:.3f} s "
+              f"({cycles * n / plain_s:.4g} cycles*images/s); under the "
+              f"profiler {wall_s:.3f} s, {n_launch} kernel launches = "
+              f"{n_launch / cycles:.2f} a simulated cycle, device busy "
+              f"{busy_s:.4f} s, idle share {1 - busy_s / wall_s:.3f} "
+              f"[{card}]")
+        for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                        reverse=True)[:6]:
+            print(f"[cgra]   {e.self_device_time_total / 1e3:.2f} ms in "
+                  f"{e.count} launches: {e.key[:90]}")
+
+        # 7. the flow's bench rows on the card, held against steps 1, 2, 6
+        sim_row, = bench_sim_throughput()
+        ver_row, = bench_verify_batched()
+        print(f"[cgra] step 7 {json.dumps(sim_row)}")
+        print(f"[cgra] step 7 {json.dumps(ver_row)}")
+        d = sim_row["derived"]
+        if d["cycles"] != cycles:
+            raise AssertionError(f"simulator_gemm_torch ran {d['cycles']} "
+                                 f"cycles, step 1's GEMM has {cycles}")
+        d = ver_row["derived"]
+        if (d["kernels"], d["batch"]) != (len(CGRA_SET), len(VERIFY_SEEDS)):
+            raise AssertionError(f"verify_batched_torch covered {d}")
+        print(f"[cgra] step 7 simulator_gemm_torch: {sim_row['derived']['cycles_per_s']} "
+              f"cycles/s at 1 image against step 6's "
+              f"{cycles / plain_s:.4g} at {n} images; verify_batched_torch: "
+              f"{d['batch_verifies_per_s']} verifies/s batched, "
+              f"{d['seq_verifies_per_s']} one seed at a time, at "
+              f"{d['batch']} seeds, against step 2's {step2_rate:.1f} at "
+              f"{CGRA_SEEDS['fleet']} [{card}]")
+    finally:
+        reset_pool(kill=True)
+    launched = {name: op.launches for name, op in five.items()
+                if op.launches}
+    if launched:
+        raise AssertionError(f"the CGRA path launched {launched}")
+    print("[cgra] the CGRA path launched none of the five kernels")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1108,6 +1374,7 @@ def main() -> int:
     entries = [phase_decode_attn_check(card), *phase_wkv6_check(card)]
     table1, launches = phase_table1_kernels(card)
     entries += table1
+    phase_cgra(card)
     for arch in ("llama3.2-1b", "rwkv6-1.6b"):
         launches.update(phase_serve(card, arch))
         torch.cuda.empty_cache()

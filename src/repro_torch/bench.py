@@ -13,6 +13,13 @@ warm-up included), so a caller can hold the ops' launch counts to it.
 ``micro_cases`` gives each row's inputs, drawn from one seed, so a caller
 can hold the very inputs the rows time against the plain versions.
 
+``bench_sim_throughput`` and ``bench_verify_batched`` are the CGRA flow's
+rows (``simulator_gemm_torch``, ``verify_batched_torch``), the
+counterparts of ``benchmarks/run.py``'s ``bench_sim_throughput`` and
+``bench_verify_batched``: the cycle-accurate simulator on the Table-I
+GEMM, and sequential ``verify`` against one ``verify_batch`` per kernel
+over the ten-kernel verification set, on ``device``.
+
 ``time_ms`` is the port's timer of device work, also used by
 ``chip_smoke.py``.
 """
@@ -145,3 +152,104 @@ def bench_kernel_micro(device: DeviceLike = None) -> List[Dict]:
         rows.append({"name": name, "us": round(us, 1),
                      "derived": dict(kernel=op, calls=calls, **derived)})
     return rows
+
+
+# register-file sizes of the stacked-verification cohort: one 4 x 4 mesh
+# fabric with four 4 kB banks, as the JAX package's design-space point
+# ArchPoint(rows=4, cols=4, torus=False, regfile_size=rf, bank_kb=4,
+# banks_per_col=2, het="none") builds it (``dse/`` is not ported)
+RF_COHORT = (4, 8, 16)
+
+
+def rf_cohort_arch(rf: int):
+    """The cohort's fabric with an ``rf``-register file, named as the
+    design-space point names it."""
+    from .core.adl import CGRAArch, MemBank
+
+    rows = cols = 4
+    left = [r * cols for r in range(rows)]
+    right = [r * cols + cols - 1 for r in range(rows)]
+    size = 4 * 1024
+    arch = CGRAArch(
+        name=f"dse-4x4-mesh-rf{rf}-b4x4k", rows=rows, cols=cols,
+        datapath_bits=16, regfile_size=rf,
+        banks=[MemBank(0, size, tuple(left[:2])),
+               MemBank(1, size, tuple(right[:2])),
+               MemBank(2, size, tuple(left[2:])),
+               MemBank(3, size, tuple(right[2:]))],
+        torus=False, per_pe_ops={}, clusters=[list(range(rows * cols))])
+    arch.validate()
+    return arch
+
+
+def _simcache_derived(st: Dict[str, int]) -> Dict[str, int]:
+    """The runner-cache counters a verify row carries (informational)."""
+    return {"sim_cache_entries": st["entries"], "sim_cache_hits": st["hits"],
+            "sim_cache_misses": st["misses"]}
+
+
+def bench_sim_throughput(device: DeviceLike = None) -> List[Dict]:
+    """Simulated cycles per second of one ``CompiledKernel.run`` of the
+    Table-I GEMM (6 x 8 x 6, base variant) on ``device``, best of 3 after
+    a warm-up run."""
+    from .core.kernels_lib import build_gemm
+    from .core.toolchain import Toolchain
+    from .core.verify import generate_test_data
+
+    dev = resolve_device(device)
+    spec = build_gemm(TI=6, TK=8, TJ=6, unroll=1)
+    ck = Toolchain(cache_dir="").compile(spec)
+    data = generate_test_data(spec)
+    n_cycles = ck.cfg.n_cycles(spec.mapped_iters) * len(spec.invocations)
+    ck.run(data.init_banks, device=dev)
+    dt = float("inf")                 # best of 3: shields against noise
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ck.run(data.init_banks, device=dev)
+        dt = min(dt, time.perf_counter() - t0)
+    return [{"name": "simulator_gemm_torch", "us": round(dt * 1e6, 1),
+             "derived": dict(cycles=n_cycles,
+                             cycles_per_s=round(n_cycles / dt))}]
+
+
+# the seed batch of the verify row, as benchmarks/run.py's
+VERIFY_SEEDS = tuple(range(8))
+
+
+def bench_verify_batched(device: DeviceLike = None) -> List[Dict]:
+    """Verification throughput over the Table-I (small dims) + DSL kernel
+    set: per-seed sequential ``verify`` against one ``verify_batch`` per
+    kernel at VERIFY_SEEDS, both on ``device`` after one untimed pass of
+    each."""
+    from .core import simcache
+    from .core.kernels_lib import table1_kernels
+    from .core.toolchain import Toolchain
+    from .frontend.library import dsl_kernels
+
+    dev = resolve_device(device)
+    seeds = list(VERIFY_SEEDS)
+    specs = {**table1_kernels(small=True), **dsl_kernels()}
+    cks = Toolchain(cache_dir="").compile_many(list(specs.values()))
+    for ck in cks:
+        ck.verify(seed=seeds[0], device=dev)
+        ck.verify_batch(seeds, device=dev)
+    cache = simcache.stats()
+
+    t0 = time.perf_counter()
+    for ck in cks:
+        for s in seeds:
+            ck.verify(seed=s, device=dev)
+    seq = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for ck in cks:
+        ck.verify_batch(seeds, device=dev)
+    bat = time.perf_counter() - t0
+
+    n = len(cks) * len(seeds)
+    return [{"name": "verify_batched_torch", "us": round(bat * 1e6, 1),
+             "derived": dict(seq_us=round(seq * 1e6), kernels=len(cks),
+                             batch=len(seeds), verifies=n,
+                             seq_verifies_per_s=round(n / seq, 1),
+                             batch_verifies_per_s=round(n / bat, 1),
+                             speedup=round(seq / bat, 2),
+                             **_simcache_derived(cache))}]

@@ -52,3 +52,34 @@ def test_bench_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench.bench_kernel_micro()
+
+
+def test_cgra_bench_rows_on_cpu(monkeypatch):
+    """The CGRA flow's rows, the counterparts of benchmarks/run.py's
+    simulator_gemm and verify_batched, on the CPU at a small seed batch
+    over two kernels of the set."""
+    from repro_torch.core import kernels_lib
+    from repro_torch.frontend import library
+
+    sim, = bench.bench_sim_throughput("cpu")
+    assert sim["name"] == "simulator_gemm_torch"
+    assert sim["us"] > 0 and sim["derived"]["cycles"] > 0
+    assert sim["derived"]["cycles_per_s"] > 0
+    table1, dsl = kernels_lib.table1_kernels, library.dsl_kernels
+    monkeypatch.setattr(bench, "VERIFY_SEEDS", (0, 1))
+    monkeypatch.setattr(kernels_lib, "table1_kernels", lambda **kw: {
+        "GEMM": table1(**kw)["GEMM"]})
+    monkeypatch.setattr(library, "dsl_kernels", lambda *a: {
+        "requant-int8": dsl(*a)["requant-int8"]})
+    ver, = bench.bench_verify_batched("cpu")
+    assert ver["name"] == "verify_batched_torch"
+    d = ver["derived"]
+    assert (d["kernels"], d["batch"], d["verifies"]) == (2, 2, 4)
+    assert d["batch_verifies_per_s"] > 0 and d["sim_cache_entries"] >= 1
+
+
+def test_cgra_bench_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for row in (bench.bench_sim_throughput, bench.bench_verify_batched):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            row()

@@ -728,3 +728,107 @@ def test_bench_kernel_micro_on_card(monkeypatch):
         assert r["us"] > 0
         calls[r["derived"]["kernel"]] += r["derived"]["calls"]
     assert {k: op.launches - before[k] for k, op in ops.items()} == calls
+
+
+# ----------------------------------------------------------- the CGRA flow
+# The six Table-I kernels at small dims and the four DSL kernels, compiled
+# by the port on the host; the card's results are held word for word
+# against the port's own CPU path (which the CPU tests hold against JAX).
+CGRA_SET = ["GEMM", "GEMM-U", "GEMM-U-C", "CONV", "CONV-U-C-1",
+            "CONV-U-C-2", "dwconv", "avgpool2x2", "gemm-bias-relu",
+            "requant-int8"]
+CGRA_SEEDS = list(range(16))
+
+
+@pytest.fixture(scope="module")
+def cgra_set():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core import Toolchain, table1_kernels
+    from repro_torch.frontend.library import dsl_kernels
+    specs = {**table1_kernels(small=True), **dsl_kernels()}
+    cks = Toolchain(cache_dir="").compile_many([specs[n] for n in CGRA_SET])
+    return dict(zip(CGRA_SET, cks))
+
+
+def _same_banks(want, got, label):
+    assert len(want) == len(got)
+    for i, (w, g) in enumerate(zip(want, got)):
+        for bank in w:
+            assert g[bank].dtype == w[bank].dtype, label
+            np.testing.assert_array_equal(g[bank], w[bank],
+                                          err_msg=f"{label} {i} {bank}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile_limit", [None, 0])
+@pytest.mark.parametrize("name", CGRA_SET)
+def test_cgra_simulate_batch_on_card_matches_cpu(cgra_set, name,
+                                                 tile_limit, monkeypatch):
+    """Both store-gate paths: tabulated (the default at these sizes) and
+    derived each cycle (tiling cap 0)."""
+    from repro_torch.core import simulator
+    from repro_torch.core.verify import generate_test_data
+    if tile_limit is not None:
+        monkeypatch.setattr(simulator, "_TILE_BYTES_LIMIT", tile_limit)
+    ck = cgra_set[name]
+    init = [generate_test_data(ck.spec, s).init_banks for s in CGRA_SEEDS]
+    _same_banks(ck.run_batch(init, device="cpu"),
+                ck.run_batch(init, device="cuda"), name)
+    _same_banks([ck.run(init[0], device="cpu")],
+                [ck.run(init[0], device="cuda")], name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 32])
+def test_cgra_int32_carrier_on_card_matches_cpu(bits):
+    """Datapaths other than 16 bits run on int32 carriers (an explicit
+    wrap at 8 bits, int32 overflow at 32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+    from repro_torch.core import Toolchain, cluster_4x4, table1_kernels
+    from repro_torch.core.toolchain import CompiledKernel
+    arch = dataclasses.replace(cluster_4x4(), datapath_bits=bits)
+    ck = CompiledKernel.from_json(Toolchain(cache_dir="").compile(
+        table1_kernels(small=True, arch=arch)["GEMM"]).to_json())
+    init = [ck.random_banks(s) for s in CGRA_SEEDS]
+    _same_banks(ck.run_batch(init, device="cpu"),
+                ck.run_batch(init, device="cuda"), f"{bits}-bit")
+    ck.verify_batch(CGRA_SEEDS, device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", CGRA_SET)
+def test_cgra_oracle_on_card_matches_numpy(cgra_set, name):
+    from repro_torch.core.refexec import reference_execute_torch
+    from repro_torch.core.verify import generate_test_data
+    spec = cgra_set[name].spec
+    inits = [generate_test_data(spec, s).init_banks for s in CGRA_SEEDS]
+    stacked = {k: np.stack([i[k] for i in inits]) for k in inits[0]}
+    bits = spec.arch.datapath_bits
+    want = spec.dfg.reference_execute_batch(
+        spec.mapped_iters, {k: v.astype(np.int64) for k, v in stacked.items()},
+        spec.invocations, bits=bits)
+    got = reference_execute_torch(spec.dfg, spec.mapped_iters, stacked,
+                                  spec.invocations, bits, device="cuda")
+    for bank in want:
+        np.testing.assert_array_equal(got[bank], want[bank], err_msg=bank)
+
+
+@pytest.mark.gpu
+def test_cgra_verify_stacked_on_card():
+    """dwconv and requant-int8 on fabrics with 4, 8 and 16 registers: each
+    kernel's three variants in one 16-register stacked cycle loop."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.bench import RF_COHORT, rf_cohort_arch
+    from repro_torch.core import Toolchain
+    from repro_torch.core.toolchain import verify_stacked
+    from repro_torch.frontend.library import dsl_kernels
+    tc = Toolchain(cache_dir="")
+    cks = [tc.compile(dsl_kernels(rf_cohort_arch(rf))[name])
+           for name in ("dwconv", "requant-int8") for rf in RF_COHORT]
+    assert verify_stacked(cks, range(64), device="cuda") == cks
+    for ck in cks:
+        ck.verify_batch(range(8), device="cuda")
