@@ -44,7 +44,24 @@
    bench_verify_batched) and holds them against those steps.
    Every result is compared word for word; none of the five kernels
    may launch on this path.
-5. Serves llama3.2-1b and then rwkv6-1.6b at full width and depth (random
+5. The flow's tools on the same set (phase_cgra_tools): (a) exports the
+   instruction streams (GEMM's byte-equal to the committed golden file)
+   and runs the standalone interpreter against the card's simulator on
+   every kernel over seeds 0-3; (b) the static checker on cluster_4x4
+   and its torus and on morpher_8x8 (the set's kernels that map there in
+   seconds; no diagnostic; check_report.json's sha256 printed),
+   the seeded mutation gate on the card equal to the CPU's, and the
+   dead-mutant probe on the card equal to the CPU's for every
+   config-layer mutant class; (c) verify_batch under MORPHER_CHECK=1 and
+   MORPHER_XVAL=1, and a corrupt artifact refused by the check gate
+   before anything simulates; (d) the tiny design-space sweep cold,
+   warm, resumed from its checkpoint and through a 2-worker compile fleet
+   (whose workers must not have initialised CUDA), each
+   dse_frontier.json byte-equal to the committed
+   benchmarks/results/after/dse_frontier_tiny.json; (e) an NSGA-II search
+   verifying on the card, its frontier byte-equal to the CPU's.  Prints
+   the tools' bench rows (repro_torch.bench) and each step's seconds.
+6. Serves llama3.2-1b and then rwkv6-1.6b at full width and depth (random
    weights from a seed) through the port's Engine: 12 requests over 8
    slots each, so slots are reused, and checks that the model's kernel
    ran once per layer in every decode step (decode_attn, on the tensor
@@ -52,7 +69,7 @@
    step route, each prefill on the route its length gives).  Then holds
    one decode step's logits, kernel-backed, against the same step with
    the plain version, and profiles a few decode steps.
-6. Prints the kernels as one JSON line, the card's name and power limit,
+7. Prints the kernels as one JSON line, the card's name and power limit,
    and as its last line {"ok": true, "device": {...}}.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -60,14 +77,18 @@ Any failure exits nonzero; without a card it exits 1 before doing work.
 """
 from __future__ import annotations
 
+import filecmp
+import hashlib
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
 from collections import deque
+from unittest import mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -120,6 +141,19 @@ CGRA_SET = ("GEMM", "GEMM-U", "GEMM-U-C", "CONV", "CONV-U-C-1",
             "CONV-U-C-2", "dwconv", "avgpool2x2", "gemm-bias-relu",
             "requant-int8")
 CGRA_SEEDS = {"fleet": 1024, "reloaded": 256, "stacked": 256, "full": 64}
+# phase_cgra_tools: seeds of the interpreter cross-validation (a) and of
+# the verify gates (c), and the search of step (e)
+TOOLS_XVAL_SEEDS = range(4)
+TOOLS_GATE_SEEDS = {"MORPHER_CHECK": range(256), "MORPHER_XVAL": range(4)}
+TOOLS_SEARCH = dict(algo="nsga2", seed=0, generations=3, population=4)
+# the kernels step (b) checks on morpher_8x8: the set's kernels that map
+# there in seconds (GEMM-U-C, CONV-U-C-1, CONV-U-C-2 and dwconv map there
+# only after minutes of II escalation)
+TOOLS_CHECK_8X8 = ("GEMM", "GEMM-U", "CONV", "avgpool2x2",
+                   "gemm-bias-relu", "requant-int8")
+GOLDEN_CSV = os.path.join(ROOT, "tests", "golden_gemm_small_instructions.csv")
+TINY_FRONTIER = os.path.join(ROOT, "benchmarks", "results", "after",
+                             "dse_frontier_tiny.json")
 
 
 def card_line() -> str:
@@ -1179,11 +1213,12 @@ def _cgra_step(step: str, what: str, clock: _StageClock, wall: float,
           f"{verifies / wall:.1f} verifies/s [{card}]")
 
 
-def phase_cgra(card: str) -> None:
+def phase_cgra(card: str) -> dict:
     """The CGRA flow of repro_torch.core on the card: compile on the host,
     verify over seed fleets, reloaded artifacts, a stacked RF cohort and
     one full-size kernel, each word for word; then a profile of one
-    batched simulation.  Raises on any mismatch."""
+    batched simulation.  Raises on any mismatch; returns the compiled
+    verification set by name."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.bench import (OPS, RF_COHORT, VERIFY_SEEDS,
@@ -1359,6 +1394,293 @@ def phase_cgra(card: str) -> None:
     if launched:
         raise AssertionError(f"the CGRA path launched {launched}")
     print("[cgra] the CGRA path launched none of the five kernels")
+    return cks
+
+
+def _worker_cuda_state(_unit) -> bool:
+    """Runs in a fleet worker process: has the worker initialised CUDA?"""
+    return torch.cuda.is_initialized()
+
+
+def _profiled(fn):
+    """(fn's result, wall s, device busy s) of one call under the
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+    busy = sum(getattr(e, "self_device_time_total", 0)
+               for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")) / 1e6
+    return out, wall, busy
+
+
+def _tools_step(step: str, what: str, seconds: float, card: str,
+                wall_busy=None) -> None:
+    idle = ""
+    if wall_busy is not None:
+        wall, busy = wall_busy
+        idle = (f"; under the profiler {wall:.2f} s, device busy "
+                f"{busy:.4f} s, idle share {1 - busy / wall:.3f}")
+    print(f"[tools] step {step} {what}: {seconds:.2f} s{idle} [{card}]")
+
+
+def _same_file(got: str, want: str, label: str) -> None:
+    if not filecmp.cmp(got, want, shallow=False):
+        raise AssertionError(f"{label}: {got} differs from {want}")
+
+
+def phase_cgra_tools(card: str, cks: dict) -> None:
+    """The flow's tools (repro_torch.isa, check, dist, dse) on the card,
+    over phase_cgra's compiled verification set: instruction streams and
+    the interpreter, the static checker and its mutation gate, the verify
+    gates, the tiny design-space sweep (cold, warm, resumed, through a
+    2-worker fleet) and a search.  Raises on any mismatch."""
+    import dataclasses
+
+    from repro_torch.bench import (OPS, SEARCH_KERNELS, bench_check_static,
+                                   bench_dse_search, bench_dse_sweep,
+                                   bench_isa_export)
+    from repro_torch.check import check_kernel, report_json
+    from repro_torch.check.mutate import (CLASSES, MIN_SCORE, _probe_dead,
+                                          mutate_one, mutation_gate)
+    from repro_torch.core import MapperOptions, Toolchain, morpher_8x8
+    from repro_torch.core import simulator
+    from repro_torch.core.pool import reset_pool
+    from repro_torch.core.toolchain import verify_stacked
+    from repro_torch.dist.fleet import FleetConfig, run_fleet
+    from repro_torch.dse import (SearchConfig, get_space, kernel_suite,
+                                 run_search, run_sweep, write_artifacts)
+    from repro_torch.isa import CSV_NAME, cross_validate, cross_validate_dir
+    from repro_torch.kernels.wkv6.ops import wkv6
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = os.path.join(ROOT, "build", "chip_smoke")
+    shutil.rmtree(out, ignore_errors=True)
+    five = {**OPS, "wkv6": wkv6}
+    for op in five.values():
+        op.launches = 0
+    tc = Toolchain(cache_dir="")
+    try:
+        # (a) instruction streams: export, golden, interpreter = card
+        t0 = time.perf_counter()
+        dirs = {name: os.path.join(out, "isa", name) for name in cks}
+        for name, ck in cks.items():
+            tc.export_streams(ck, dirs[name])
+        _same_file(os.path.join(dirs["GEMM"], CSV_NAME), GOLDEN_CSV,
+                   "GEMM-small instructions.csv")
+        t1 = time.perf_counter()
+        n = sum(cross_validate_dir(ck, dirs[name], seeds=TOOLS_XVAL_SEEDS,
+                                   device=dev) for name, ck in cks.items())
+        t2 = time.perf_counter()
+        _, wall, busy = _profiled(lambda: cross_validate(
+            cks["GEMM"], seeds=(0,), device=dev))
+        _tools_step("a", f"exported {len(cks)} kernels' streams in "
+                    f"{t1 - t0:.2f} s (GEMM's byte-equal to the golden "
+                    f"file); interpreter = the card's simulator on {n} "
+                    f"(kernel, seed) pairs; one seed of GEMM profiled",
+                    t2 - t1, card, (wall, busy))
+        for row in bench_isa_export(dev):
+            print(f"[tools] step a {json.dumps(row)}")
+
+        # (b) the static checker, its report and the mutation gate
+        t0 = time.perf_counter()
+        per_kernel = {}
+        torus = dataclasses.replace(cks["GEMM"].arch, torus=True,
+                                    name="morpher-cluster-4x4-torus")
+        big = kernel_suite(morpher_8x8())
+        groups = (("cluster_4x4", list(cks.values())),
+                  ("torus_4x4", tc.compile_many(
+                      list(kernel_suite(torus).values()))),
+                  ("morpher_8x8", tc.compile_many(
+                      [big[k] for k in TOOLS_CHECK_8X8])))
+        for arch, group in groups:
+            for ck in group:
+                diags = check_kernel(ck)
+                if diags:
+                    raise AssertionError(f"{arch}/{ck.name}: {diags[:3]}")
+                per_kernel[f"{arch}/{ck.name}"] = {
+                    "II": ck.II, "cache_key": ck.cache_key,
+                    "diagnostics": diags}
+        check_report = report_json(per_kernel)
+        os.makedirs(os.path.join(out, "check"), exist_ok=True)
+        with open(os.path.join(out, "check", "check_report.json"),
+                  "w") as f:
+            f.write(check_report)
+        _tools_step("b", f"check_kernel on {len(per_kernel)} kernels "
+                    "(the set on cluster_4x4 and its 4x4 torus, "
+                    f"{len(TOOLS_CHECK_8X8)} on morpher_8x8; the last two "
+                    "compiled here): no diagnostic; check_report.json "
+                    "sha256 "
+                    f"{hashlib.sha256(check_report.encode()).hexdigest()}",
+                    time.perf_counter() - t0, card)
+        t0 = time.perf_counter()
+        gate = mutation_gate(list(cks.values()), device=dev)
+        t1 = time.perf_counter()
+        cpu_gate = mutation_gate(list(cks.values()), device="cpu")
+        if gate.to_json_dict() != cpu_gate.to_json_dict():
+            raise AssertionError("the mutation gate on the card differs "
+                                 "from the CPU's")
+        if gate.score < MIN_SCORE:
+            raise AssertionError(f"mutation score {gate.score}")
+        t2 = time.perf_counter()
+        verdicts = []
+        for cls, (layer, _rule) in sorted(CLASSES.items()):
+            if layer != "config":
+                continue
+            for name in ("requant-int8", "dwconv"):
+                ck = cks[name]
+                made = mutate_one(ck, cls, seed=0, index=0)
+                if made is None:
+                    continue
+                on_card = _probe_dead(ck, layer, made[0], device=dev)
+                if on_card != _probe_dead(ck, layer, made[0],
+                                          device="cpu"):
+                    raise AssertionError(f"probe of {name}/{cls} on the "
+                                         "card differs from the CPU's")
+                verdicts.append(on_card)
+        _tools_step("b", f"mutation gate on the card ({t1 - t0:.2f} s): "
+                    f"score {gate.score:.3f} over {gate.total} mutants, "
+                    f"{len(gate.live_misses)} live misses, the CPU's "
+                    f"outcomes and score; dead-mutant probe on the card "
+                    f"on {len(verdicts)} config mutants ({sum(verdicts)} "
+                    "dead), the CPU's verdicts", time.perf_counter() - t2,
+                    card)
+        print(f"[tools] step b {json.dumps(bench_check_static(dev)[0])}")
+
+        # (c) the verify gates, and a corrupt artifact refused statically
+        for env, seeds in TOOLS_GATE_SEEDS.items():
+            with mock.patch.dict(os.environ, {env: "1"}):
+                t0 = time.perf_counter()
+                for ck in cks.values():
+                    ck.verify_batch(seeds, device=dev)
+                dt = time.perf_counter() - t0
+                _, wall, busy = _profiled(lambda: cks["GEMM"].verify_batch(
+                    seeds[:64], device=dev))
+            _tools_step("c", f"verify_batch of {len(cks)} kernels x "
+                        f"{len(seeds)} seeds with {env}=1 (GEMM's at "
+                        f"{len(seeds[:64])} seeds profiled)", dt, card,
+                        (wall, busy))
+        cfg, desc = mutate_one(cks["GEMM"], "store_window", seed=0, index=0)
+        bad = dataclasses.replace(cks["GEMM"], cfg=cfg)
+        no_sim = mock.Mock(side_effect=RuntimeError(
+            "simulated a statically corrupt artifact"))
+        with mock.patch.dict(os.environ, {"MORPHER_CHECK": "1"}), \
+                mock.patch.multiple(simulator, simulate=no_sim,
+                                    simulate_batch=no_sim,
+                                    simulate_multi=no_sim):
+            for call in (lambda: bad.verify_batch(range(4), device=dev),
+                         lambda: verify_stacked([bad], range(4),
+                                                device=dev)):
+                try:
+                    call()
+                except AssertionError as e:
+                    if "CFG-STORE-WINDOW" not in str(e):
+                        raise
+                else:
+                    raise AssertionError("the check gate passed a "
+                                         "corrupt artifact")
+        print(f"[tools] step c a corrupt GEMM ({desc}) refused by "
+              "MORPHER_CHECK=1 (CFG-STORE-WINDOW) before any simulation")
+
+        # (d) the tiny sweep: cold, warm, resumed, through the fleet
+        dse = os.path.join(out, "dse")
+        ckpt = os.path.join(dse, "checkpoint.json")
+
+        def sweep(label, cache, **kw):
+            t0 = time.perf_counter()
+            sweep_tc = Toolchain(options=MapperOptions(ii_max=20),
+                                 cache_dir=os.path.join(dse, cache))
+            res = run_sweep(get_space("tiny"), toolchain=sweep_tc,
+                            device=dev, **kw)
+            dt = time.perf_counter() - t0
+            write_artifacts(res, os.path.join(dse, label), space="tiny")
+            _same_file(os.path.join(dse, label, "dse_frontier.json"),
+                       TINY_FRONTIER, f"the {label} sweep's frontier")
+            return sweep_tc, dt
+
+        _, dt = sweep("cold", "cache", checkpoint=ckpt)
+        _tools_step("d", "cold tiny sweep (4 variants x 10 kernels, "
+                    "compiled on the host, verified on the card), "
+                    "frontier byte-equal to the committed one", dt, card)
+        _, dt = sweep("warm", "cache")
+        _tools_step("d", "warm tiny sweep, frontier byte-equal", dt, card)
+        with open(ckpt) as f:
+            d = json.load(f)
+        del d["variants"][get_space("tiny")[-1].name]
+        with open(ckpt, "w") as f:
+            json.dump(d, f)
+        _, dt = sweep("resumed", "cache", checkpoint=ckpt)
+        _tools_step("d", "tiny sweep resumed from a checkpoint missing "
+                    "its last variant, frontier byte-equal", dt, card)
+        if not torch.cuda.is_initialized():
+            raise AssertionError("CUDA is not initialised in the parent")
+        fleet_tc, dt = sweep("fleet", "cache_fleet", jobs=2)
+        report = fleet_tc.last_fleet_report
+        if report is None or report.sequential:
+            raise AssertionError("the jobs=2 sweep did not fan out")
+        states = run_fleet(_worker_cuda_state, list(range(4)),
+                           FleetConfig(groups=2)).results
+        if states is None or any(states):
+            raise AssertionError(f"fleet workers' CUDA state: {states}")
+        _tools_step("d", "cold tiny sweep through compile_many(jobs=2) "
+                    "(a 2-worker fleet, CUDA initialised in the parent, "
+                    "not in the workers), frontier byte-equal", dt, card)
+        rows = bench_dse_sweep(dev)
+        print(f"[tools] step d {json.dumps(rows[0])}")
+        with open(os.path.join(os.path.dirname(TINY_FRONTIER),
+                               "BENCH_dse_sweep.json")) as f:
+            committed = {r["name"]: r for r in json.load(f)["rows"]}
+        for row in rows[1:]:
+            print(f"[tools] step d   {json.dumps(row)}")
+            want = committed[row["name"]]
+            got = dict(row, derived=dict(row["derived"], pareto=None))
+            if got != dict(want, derived=dict(want["derived"],
+                                              pareto=None)):
+                raise AssertionError(f"{row['name']}: the committed "
+                                     f"row is {want}")
+        print("[tools] step d the rows equal the committed "
+              "BENCH_dse_sweep.json's (but for its pareto flag: that "
+              "file sweeps the small space)")
+
+        # (e) the search evaluator's row, and a search card = CPU
+        print(f"[tools] step e {json.dumps(bench_dse_search(dev)[0])}")
+        cfg = SearchConfig(**TOOLS_SEARCH)
+        suite = list(SEARCH_KERNELS)
+        fronts = {}
+        for where in (dev, "cpu"):
+            t0 = time.perf_counter()
+            sr = run_search(get_space("tiny"), cfg, suite=suite,
+                            device=where, toolchain=Toolchain(
+                                options=MapperOptions(ii_max=20),
+                                cache_dir=os.path.join(dse, "cache")))
+            dt = time.perf_counter() - t0
+            path = os.path.join(dse, f"search_{torch.device(where).type}")
+            write_artifacts(sr.evaluated, path, space="tiny",
+                            bench_name="dse_search", extra={"search": {
+                                "config": cfg.to_json_dict(),
+                                "population": sr.population,
+                                "history": sr.history}})
+            with open(os.path.join(path, "dse_frontier.json"), "rb") as f:
+                fronts[torch.device(where).type] = f.read()
+            _tools_step("e", f"{cfg.algo} search on {torch.device(where)} "
+                        f"({cfg.generations} generations of "
+                        f"{cfg.population}, {len(sr.evaluated)} points "
+                        f"evaluated, suite {len(suite)} kernels)", dt, card)
+        if fronts["cuda"] != fronts["cpu"]:
+            raise AssertionError("the search's frontier on the card "
+                                 "differs from the CPU's")
+        print("[tools] step e the search's dse_frontier.json on the card "
+              "is the CPU's byte for byte")
+    finally:
+        reset_pool(kill=True)
+    launched = {name: op.launches for name, op in five.items()
+                if op.launches}
+    if launched:
+        raise AssertionError(f"the CGRA tools launched {launched}")
+    print("[tools] the CGRA tools launched none of the five kernels")
 
 
 def main() -> int:
@@ -1374,7 +1696,7 @@ def main() -> int:
     entries = [phase_decode_attn_check(card), *phase_wkv6_check(card)]
     table1, launches = phase_table1_kernels(card)
     entries += table1
-    phase_cgra(card)
+    phase_cgra_tools(card, phase_cgra(card))
     for arch in ("llama3.2-1b", "rwkv6-1.6b"):
         launches.update(phase_serve(card, arch))
         torch.cuda.empty_cache()

@@ -20,12 +20,21 @@ counterparts of ``benchmarks/run.py``'s ``bench_sim_throughput`` and
 GEMM, and sequential ``verify`` against one ``verify_batch`` per kernel
 over the ten-kernel verification set, on ``device``.
 
+``bench_isa_export``, ``bench_check_static``, ``bench_dse_sweep`` and
+``bench_dse_search`` are the rows of the flow's tools
+(``isa_export_torch``, ``isa_xval_torch``, ``check_static_torch``,
+``dse_sweep_torch``, ``dse_search_torch``), the counterparts of
+``benchmarks/run.py``'s rows of the same names without the suffix, with
+the same ``derived`` keys; their simulations run on ``device``.
+
 ``time_ms`` is the port's timer of device work, also used by
 ``chip_smoke.py``.
 """
 from __future__ import annotations
 
 import math
+import shutil
+import tempfile
 import time
 from typing import Callable, Dict, List, Sequence, Tuple
 
@@ -155,31 +164,16 @@ def bench_kernel_micro(device: DeviceLike = None) -> List[Dict]:
 
 
 # register-file sizes of the stacked-verification cohort: one 4 x 4 mesh
-# fabric with four 4 kB banks, as the JAX package's design-space point
-# ArchPoint(rows=4, cols=4, torus=False, regfile_size=rf, bank_kb=4,
-# banks_per_col=2, het="none") builds it (``dse/`` is not ported)
+# fabric with four 4 kB banks (the design-space point
+# ArchPoint(4, 4, regfile_size=rf, bank_kb=4, banks_per_col=2))
 RF_COHORT = (4, 8, 16)
 
 
 def rf_cohort_arch(rf: int):
-    """The cohort's fabric with an ``rf``-register file, named as the
-    design-space point names it."""
-    from .core.adl import CGRAArch, MemBank
-
-    rows = cols = 4
-    left = [r * cols for r in range(rows)]
-    right = [r * cols + cols - 1 for r in range(rows)]
-    size = 4 * 1024
-    arch = CGRAArch(
-        name=f"dse-4x4-mesh-rf{rf}-b4x4k", rows=rows, cols=cols,
-        datapath_bits=16, regfile_size=rf,
-        banks=[MemBank(0, size, tuple(left[:2])),
-               MemBank(1, size, tuple(right[:2])),
-               MemBank(2, size, tuple(left[2:])),
-               MemBank(3, size, tuple(right[2:]))],
-        torus=False, per_pe_ops={}, clusters=[list(range(rows * cols))])
-    arch.validate()
-    return arch
+    """The cohort's fabric with an ``rf``-register file."""
+    from .dse.space import ArchPoint
+    return ArchPoint(4, 4, regfile_size=rf, bank_kb=4,
+                     banks_per_col=2).build()
 
 
 def _simcache_derived(st: Dict[str, int]) -> Dict[str, int]:
@@ -212,6 +206,25 @@ def bench_sim_throughput(device: DeviceLike = None) -> List[Dict]:
                              cycles_per_s=round(n_cycles / dt))}]
 
 
+_set_toolchain = None
+
+
+def _verification_set():
+    """The ten-kernel verification set (six Table-I kernels at small dims,
+    four DSL kernels), compiled without a disk cache; the rows share one
+    in-process memo (keyed by content address), so the set compiles once
+    a process."""
+    global _set_toolchain
+    from .core.kernels_lib import table1_kernels
+    from .core.toolchain import Toolchain
+    from .frontend.library import dsl_kernels
+
+    if _set_toolchain is None:
+        _set_toolchain = Toolchain(cache_dir="")
+    specs = {**table1_kernels(small=True), **dsl_kernels()}
+    return _set_toolchain.compile_many(list(specs.values()))
+
+
 # the seed batch of the verify row, as benchmarks/run.py's
 VERIFY_SEEDS = tuple(range(8))
 
@@ -222,14 +235,10 @@ def bench_verify_batched(device: DeviceLike = None) -> List[Dict]:
     kernel at VERIFY_SEEDS, both on ``device`` after one untimed pass of
     each."""
     from .core import simcache
-    from .core.kernels_lib import table1_kernels
-    from .core.toolchain import Toolchain
-    from .frontend.library import dsl_kernels
 
     dev = resolve_device(device)
     seeds = list(VERIFY_SEEDS)
-    specs = {**table1_kernels(small=True), **dsl_kernels()}
-    cks = Toolchain(cache_dir="").compile_many(list(specs.values()))
+    cks = _verification_set()
     for ck in cks:
         ck.verify(seed=seeds[0], device=dev)
         ck.verify_batch(seeds, device=dev)
@@ -253,3 +262,204 @@ def bench_verify_batched(device: DeviceLike = None) -> List[Dict]:
                              batch_verifies_per_s=round(n / bat, 1),
                              speedup=round(seq / bat, 2),
                              **_simcache_derived(cache))}]
+
+
+def bench_isa_export(device: DeviceLike = None) -> List[Dict]:
+    """Instruction-stream backend over the verification set: export
+    (encode all three artifacts, best of 3) and the standalone-interpreter
+    cross-validation against ``simulate()`` on ``device`` (one seed, best
+    of 3)."""
+    from .isa.encode import encode_kernel
+    from .isa.xval import cross_validate, stream_for
+
+    dev = resolve_device(device)
+    cks = _verification_set()
+    insns = sum(ck.cfg.II * ck.cfg.P for ck in cks)
+    for ck in cks:                       # warm: imports, one run each
+        encode_kernel(ck)
+        cross_validate(ck, seeds=(0,), device=dev)
+
+    exp = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        arts = [encode_kernel(ck) for ck in cks]
+        exp = min(exp, time.perf_counter() - t0)
+    streams = [stream_for(ck) for ck in cks]
+    xval = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for ck, st in zip(cks, streams):
+            cross_validate(ck, seeds=(0,), stream=st, device=dev)
+        xval = min(xval, time.perf_counter() - t0)
+    return [{"name": "isa_export_torch", "us": round(exp * 1e6, 1),
+             "derived": dict(kernels=len(cks), insns=insns,
+                             bytes=sum(len(t) for a in arts
+                                       for t in a.values()),
+                             insns_per_s=round(insns / exp))},
+            {"name": "isa_xval_torch", "us": round(xval * 1e6, 1),
+             "derived": dict(kernels=len(cks), seeds=1,
+                             kernels_per_s=round(len(cks) / xval, 1))}]
+
+
+def bench_check_static(device: DeviceLike = None) -> List[Dict]:
+    """Static legality audit over the verification set (all three layers
+    per kernel, best of 3); ``verify_us`` is one batch-1 ``verify`` of the
+    same set on ``device`` (best of 3): the cost the ``MORPHER_CHECK=1``
+    pre-screen lets a fleet skip for an artifact corrupt on paper."""
+    from .check import check_kernel, errors
+
+    dev = resolve_device(device)
+    cks = _verification_set()
+    for ck in cks:                       # warm: imports, one run each
+        assert not errors(check_kernel(ck))
+        ck.verify(seed=0, device=dev)
+
+    chk = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        n_diags = sum(len(check_kernel(ck)) for ck in cks)
+        chk = min(chk, time.perf_counter() - t0)
+    ver = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for ck in cks:
+            ck.verify(seed=0, device=dev)
+        ver = min(ver, time.perf_counter() - t0)
+    return [{"name": "check_static_torch", "us": round(chk * 1e6, 1),
+             "derived": dict(kernels=len(cks), diagnostics=n_diags,
+                             kernels_per_s=round(len(cks) / chk, 1),
+                             verify_us=round(ver * 1e6),
+                             verify_ratio=round(ver / chk, 1))}]
+
+
+# the design space of the sweep row, as benchmarks/run.py's
+SWEEP_SPACE = "tiny"
+
+
+def bench_dse_sweep(device: DeviceLike = None) -> List[Dict]:
+    """The ``tiny`` design-space sweep end to end from a cold cache: every
+    variant compiles the ten-kernel library on the host and verifies it on
+    ``device``.  The first row, ``dse_sweep_torch``, is the sweep's wall
+    time; the others are the sweep's own rows
+    (:func:`~repro_torch.dse.pareto.sweep_bench_rows`: modeled latency,
+    deterministic, the JAX package's rows word for word)."""
+    from .core import simcache
+    from .core.mapper import MapperOptions
+    from .core.toolchain import Toolchain
+    from .dse import frontier, get_space, run_sweep, sweep_bench_rows
+
+    dev = resolve_device(device)
+    cache = tempfile.mkdtemp(prefix="morpher-dse-bench-")
+    try:
+        tc = Toolchain(options=MapperOptions(ii_max=20), cache_dir=cache)
+        t0 = time.perf_counter()
+        results = run_sweep(get_space(SWEEP_SPACE), toolchain=tc,
+                            device=dev)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    rows = sweep_bench_rows(results)
+    n_kernels = sum(len(r.kernels) for r in results)
+    head = {"name": "dse_sweep_torch", "us": round(wall * 1e6, 1),
+            "derived": dict(variants=len(results),
+                            verified=sum(r.ok for r in results),
+                            kernels=n_kernels,
+                            frontier=len(frontier(results)),
+                            kernels_per_s=round(n_kernels / wall, 2),
+                            **_simcache_derived(simcache.stats()))}
+    return [head] + rows
+
+
+# the cohort of the search row, as benchmarks/run.py's: homogeneous 4 x 4
+# variants of the wide space, four kernels, four seeds
+SEARCH_POINTS = 12
+SEARCH_KERNELS = ("GEMM", "CONV", "dwconv", "requant-int8")
+SEARCH_SEEDS = tuple(range(4))
+
+
+def bench_dse_search(device: DeviceLike = None) -> List[Dict]:
+    """Cross-architecture batched simulation, the DSE search evaluator's
+    core, on ``device``: a cohort of homogeneous 4 x 4 wide-space variants
+    (RF 4/8/16) compiles SEARCH_KERNELS (off the clock), then the same
+    verification batches are simulated one ``run_batch`` per (variant,
+    kernel) (``exhaustive``) and stacked by shape bucket into one
+    ``simulate_multi`` cycle loop per group (``stacked``).  Each path is
+    timed once with an empty runner cache (``exhaustive_us`` / ``us``),
+    then once warm (``warm_*``), and the warm outputs are held word for
+    word.  An eager runner compiles nothing, so cold and warm differ only
+    by its construction (the JAX package's row takes the best of 2 of
+    each, its cold runs paying XLA builds)."""
+    import numpy as np
+
+    from .core import simcache
+    from .core.mapper import MapperOptions
+    from .core.simulator import simulate_multi, stack_signature
+    from .core.toolchain import Toolchain, _batch_oracle
+    from .dse import get_space, kernel_suite
+
+    dev = resolve_device(device)
+    points = [p for p in get_space("wide")
+              if p.rows == 4 and p.cols == 4 and p.het == "none"
+              ][:SEARCH_POINTS]
+    seeds = list(SEARCH_SEEDS)
+    tc = Toolchain(options=MapperOptions(ii_max=20), cache_dir="")
+    units = []                                    # (ck, init_banks_batch)
+    for p in points:
+        suite = kernel_suite(p.build())
+        cks = tc.compile_many([suite[k] for k in SEARCH_KERNELS],
+                              allow_unmapped=True)
+        units += [(ck, _batch_oracle(ck, seeds, False, dev)[0])
+                  for ck in cks if ck is not None]
+
+    def exhaustive():
+        return [ck.run_batch(init, device=dev) for ck, init in units]
+
+    def stacked():
+        groups: Dict[tuple, List[int]] = {}
+        for i, (ck, _init) in enumerate(units):
+            sig = stack_signature(ck.cfg, ck.mapped_iters,
+                                  len(ck.invocations))
+            groups.setdefault(sig, []).append(i)
+        outs: List = [None] * len(units)
+        for sig in sorted(groups):
+            idxs = groups[sig]
+            finals = simulate_multi(
+                [(units[i][0].cfg, units[i][1], units[i][0].invocations)
+                 for i in idxs],
+                n_iters=units[idxs[0]][0].mapped_iters, device=dev)
+            for i, f in zip(idxs, finals):
+                outs[i] = f
+        return outs
+
+    def timed(fn, cold: bool):
+        if cold:
+            simcache.clear()
+        t0 = time.perf_counter()
+        out = fn()               # returns host banks: the card is done
+        return out, time.perf_counter() - t0, simcache.stats()["misses"]
+
+    _, exh, builds_exh = timed(exhaustive, True)
+    outs_exh, warm_exh, _ = timed(exhaustive, False)
+    _, flat, builds_flat = timed(stacked, True)
+    outs_flat, warm_flat, _ = timed(stacked, False)
+    for fa, fb in zip(outs_exh, outs_flat):      # [seed][bank] arrays
+        for da, db in zip(fa, fb):
+            assert set(da) == set(db)
+            for k in da:
+                if not np.array_equal(da[k], db[k]):
+                    raise AssertionError(f"stacked and exhaustive "
+                                         f"simulation differ in {k}")
+    return [{"name": "dse_search_torch", "us": round(flat * 1e6, 1),
+             "derived": dict(points=len(points),
+                             kernels=len(SEARCH_KERNELS),
+                             seeds=len(seeds), units=len(units),
+                             builds_exhaustive=builds_exh,
+                             builds_stacked=builds_flat,
+                             evals_per_s=round(len(points) / flat, 1),
+                             exhaustive_us=round(exh * 1e6),
+                             exhaustive_evals_per_s=round(
+                                 len(points) / exh, 1),
+                             speedup=round(exh / flat, 2),
+                             warm_us=round(warm_flat * 1e6),
+                             warm_exhaustive_us=round(warm_exh * 1e6),
+                             **_simcache_derived(simcache.stats()))}]

@@ -55,8 +55,8 @@ from ..device import resolve_device
 from . import simcache
 from .config_gen import (KIND_FUOUT, KIND_IMM, KIND_IN_E, KIND_IN_N,
                          KIND_IN_S, KIND_IN_W, KIND_LIREG, KIND_NONE,
-                         KIND_REG, OPC, OPC_LOAD, OPC_PASS, OPC_STORE,
-                         SimConfig, narrowed_planes)
+                         KIND_REG, OPC, OPC_LOAD, OPC_NONE, OPC_PASS,
+                         OPC_STORE, SimConfig, narrowed_planes)
 from .dfg import Op
 
 # xo-port index a reader consults on its neighbour: OPP of (N,E,S,W)
@@ -101,6 +101,11 @@ _ALU = {
     OPC[Op.CMPLT]: lambda a, b, c, bits: _cmp(a < b, a),
     OPC[Op.SELECT]: lambda a, b, c, bits: torch.where(a != 0, b, c),
 }
+
+# an opcode outside the table (a corrupt config) computes 0, as the JAX
+# package's where-chain does: it runs as this pseudo-op
+_ZERO_OP = -1
+_ALU[_ZERO_OP] = lambda a, b, c, bits: torch.zeros_like(a)
 
 # configuration planes indexed by the II slot.  ``port_idx`` maps every
 # mux port (operands + RF writes + crossbar writes, [II,P,3+RF+4]) to its
@@ -270,6 +275,8 @@ class _Slot:
                  LI: int, bits: int, multi: bool, dev: torch.device):
         t = functools.partial(torch.as_tensor, device=dev)
         op = pl["op"].astype(np.int64)                     # [P] | [B,P]
+        op = np.where(np.isin(op, [*_ALU, OPC_NONE, OPC_LOAD, OPC_STORE]),
+                      op, _ZERO_OP)
         self.alu_ops = sorted(int(o) for o in np.unique(op) if o in _ALU)
         alu_lane = np.isin(op, self.alu_ops)
         self.alu_mask = t(alu_lane)

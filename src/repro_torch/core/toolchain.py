@@ -36,13 +36,12 @@ configuration generation are the same host code, artifacts serialize byte
 for byte alike (so either package loads the other's), and the cache
 directory and keys are shared.  Simulation and the batched DFG oracle run
 in torch on ``device`` (``None``: the CUDA card; tests pass ``"cpu"``);
-the module imports no torch itself, so mapper worker processes stay
-light.  Parts that stand on packages not ported yet raise
-``NotImplementedError`` naming ROADMAP A2.4: the ``MORPHER_CHECK`` and
-``MORPHER_XVAL`` gates, ``export_streams``, ``cross_validate``, ``check``
-and the supervised fleet (``fleet=``); ``compile_many`` compiles in this
-process, the sequential path that the JAX package documents as
-bit-identical to its fan-out.
+the module imports no torch itself, so mapper and fleet worker processes
+stay light and never touch the card: a worker receives JSON and returns
+JSON, and only the calling process simulates.  The opt-in gates
+(``MORPHER_CHECK=1``: the static checker before any simulation;
+``MORPHER_XVAL=1``: the instruction-stream interpreter after it, its
+simulations on the same ``device``) behave as in the JAX package.
 """
 from __future__ import annotations
 
@@ -105,24 +104,6 @@ def spec_cache_key(spec: KernelSpec, options: MapperOptions) -> str:
     }
     blob = json.dumps(ident, sort_keys=True, separators=(",", ":"))
     return hashlib.sha256(blob.encode()).hexdigest()
-
-
-def _deferred(what: str) -> NotImplementedError:
-    """The error for a feature whose package is not ported yet."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP A2.4)")
-
-
-def _refuse_gates() -> None:
-    """Raise for the opt-in verify gates, which need ``check/`` and
-    ``isa/`` (not ported yet): a verify must never run without a gate the
-    caller asked for."""
-    from .verify import check_enabled, xval_enabled
-    if check_enabled():
-        raise _deferred("MORPHER_CHECK=1 (the static legality checker)")
-    if xval_enabled():
-        raise _deferred("MORPHER_XVAL=1 (the instruction-stream "
-                        "cross-validation)")
 
 
 def _compile_worker(payload: str) -> str:
@@ -245,7 +226,12 @@ class CompiledKernel:
         runs on ``device`` (``None``: the CUDA card); the per-seed oracles
         are the scalar host interpreters, as in the JAX package.
         """
-        _refuse_gates()
+        from .verify import check_enabled
+        if check_enabled():
+            # opt-in static gate (MORPHER_CHECK=1): a clean artifact must
+            # be diagnostic-free before any simulation runs
+            from ..check import assert_clean
+            assert_clean(self)
         if self.spec is not None:
             from .verify import check_dfg_semantics, generate_test_data
             data = generate_test_data(self.spec, seed)
@@ -269,6 +255,13 @@ class CompiledKernel:
                     f"{self.name} (II={self.II}): simulation mismatch in "
                     f"{bank} at words {bad.tolist()}: got {got[bad]}, "
                     f"want {exp[bad]}")
+        from .verify import xval_enabled
+        if xval_enabled():
+            # opt-in second oracle (MORPHER_XVAL=1): the exported
+            # instruction stream through the standalone interpreter must
+            # also match the simulator bit-for-bit
+            from ..isa.xval import cross_validate
+            cross_validate(self, seeds=(seed,), device=device)
         return self
 
     def verify_batch(self, seeds: Sequence[int] = (0,),
@@ -291,10 +284,17 @@ class CompiledKernel:
         seeds = list(seeds)
         if not seeds:
             return self
-        _refuse_gates()
+        from .verify import check_enabled
+        if check_enabled():
+            from ..check import assert_clean
+            assert_clean(self)
         init_batch, expected = _batch_oracle(self, seeds, check_dfg, device)
         finals = self.run_batch(init_batch, device=device)
         _check_batch(self, seeds, init_batch, expected, finals)
+        from .verify import xval_enabled
+        if xval_enabled():
+            from ..isa.xval import cross_validate
+            cross_validate(self, seeds=seeds, device=device)
         return self
 
     # --------------------------------------------------------- serialization
@@ -406,7 +406,11 @@ def verify_stacked(kernels: Sequence[CompiledKernel],
     seeds = list(seeds)
     if not seeds or not kernels:
         return kernels
-    _refuse_gates()
+    from .verify import check_enabled
+    if check_enabled():
+        from ..check import assert_clean
+        for ck in kernels:
+            assert_clean(ck)
     groups: Dict[tuple, List[int]] = {}
     for idx, ck in enumerate(kernels):
         sig = stack_signature(ck.cfg, ck.mapped_iters,
@@ -423,6 +427,11 @@ def verify_stacked(kernels: Sequence[CompiledKernel],
             n_iters=kernels[idxs[0]].mapped_iters, device=device)
         for (ck, init_batch, expected), f in zip(prep, finals):
             _check_batch(ck, seeds, init_batch, expected, f)
+    from .verify import xval_enabled
+    if xval_enabled():
+        from ..isa.xval import cross_validate
+        for ck in kernels:
+            cross_validate(ck, seeds=seeds, device=device)
     return kernels
 
 
@@ -447,8 +456,9 @@ class Toolchain:
         self._memo: Dict[str, CompiledKernel] = {}
         self._memo_err: Dict[str, str] = {}
         self._lock = threading.Lock()
-        # the JAX package's recovery ledger of a compile_many fleet
-        # fan-out; the fleet is not ported (ROADMAP A2.4), so it stays None
+        # recovery ledger of the most recent compile_many fan-out (a
+        # dist.fleet.FleetReport), None before the first one / after a
+        # FleetError degradation — sweeps surface it in their logs
         self.last_fleet_report = None
 
     # ----------------------------------------------------------- cache I/O
@@ -643,33 +653,41 @@ class Toolchain:
                      allow_unmapped: bool = False,
                      fleet=None
                      ) -> List[Optional[CompiledKernel]]:
-        """Compile many kernels, resolving cache hits first and compiling
-        each distinct miss (deduplicated by content address) once.
+        """Fan independent kernel compiles out across worker processes.
 
-        The JAX package fans the misses out across a supervised process
-        fleet; its sequential fallback, which it documents as
-        bit-identical, is the path taken here (each compile's mapper still
-        runs its portfolio search on the shared process pool).  ``jobs``
-        other than ``None`` or 1 and ``fleet=`` other than ``None`` raise
-        ``NotImplementedError``: the parallel compile and the fleet runner
-        (``dist/``) are not ported yet (ROADMAP A2.4), and
-        ``last_fleet_report`` stays ``None``.
+        Cache hits resolve immediately; misses (deduplicated by content
+        address) run concurrently.  The mapper is pure Python and therefore
+        GIL-bound, so the fan-out uses processes, bridging each compile
+        through its JSON form (specs carry unpicklable closures; their
+        structural parts round-trip losslessly).  Falls back to sequential
+        in-process compiles if no process pool is available.  Workers
+        import no torch and never touch the card.
+
+        The fan-out runs through the supervised fleet runner
+        (:func:`repro_torch.dist.fleet.run_fleet`): every compile unit gets
+        a deadline (``MORPHER_TASK_TIMEOUT_S``), bounded deterministic
+        retry, and transparent recovery from killed workers — a lost
+        worker re-queues its units on a rebuilt pool instead of crashing
+        the sweep.  Content-addressing makes units idempotent, so
+        recovery is exact.  Pass a ``fleet``
+        :class:`~repro_torch.dist.fleet.FleetConfig` to shard units across
+        worker groups (elastic membership, work stealing) or to inject
+        faults; the last run's recovery ledger is on
+        ``self.last_fleet_report``.
 
         Specs may target heterogeneous architectures — each compile carries
-        its own arch.  With ``allow_unmapped=True`` an infeasible (arch,
-        kernel) pair yields ``None`` at its index instead of raising
-        MapError; failures are memoized like successes (deterministic
-        mapper, deterministic failure).
+        its own arch — which is how design-space sweeps fan one kernel
+        suite across many CGRA variants.  With ``allow_unmapped=True`` an
+        infeasible (arch, kernel) pair yields ``None`` at its index instead
+        of raising MapError, so one impossible variant cannot abort a
+        sweep; the default remains raise-on-failure.  Failures are
+        memoized like successes (deterministic mapper, deterministic
+        failure), so a sweep re-run does not re-pay the II escalation of
+        its infeasible points.
         """
-        if fleet is not None:
-            raise _deferred("compile_many(fleet=...) (the supervised "
-                            "fleet runner)")
-        if jobs not in (None, 1):
-            raise _deferred(f"compile_many(jobs={jobs}) (the parallel "
-                            "compile)")
         specs = [self._bind(s) for s in specs]
         opt = options or self.options
-        self.last_fleet_report = None
+        self.last_fleet_report = None   # set again iff a fan-out runs
         keys = [spec_cache_key(s, opt) for s in specs]
         results: List[Optional[CompiledKernel]] = [None] * len(specs)
         todo: Dict[str, List[int]] = {}      # cache_key -> spec indices
@@ -690,7 +708,63 @@ class Toolchain:
                 continue    # allow_unmapped: stays None
             todo.setdefault(key, []).append(i)
 
-        for key, idxs in todo.items():
+        def finish(key: str, idxs: List[int], mapping: Mapping,
+                   cfg: SimConfig) -> None:
+            ck = self._finish(specs[idxs[0]], opt, key, mapping, cfg,
+                              use_cache)
+            for i in idxs:
+                results[i] = ck
+
+        if jobs is None:
+            jobs = min(len(todo), os.cpu_count() or 1) or 1
+        if fleet is not None:
+            # an explicit fleet config is a request to shard: even a
+            # 1-CPU host runs the supervised fan-out so fault injection
+            # and the recovery paths behave identically everywhere
+            jobs = max(jobs, fleet.groups)
+        order = list(todo.items())
+        if len(order) > 1 and jobs > 1:
+            payloads = [json.dumps({
+                "dfg": specs[idxs[0]].dfg.to_json_dict(),
+                "arch": json.loads(specs[idxs[0]].arch.to_json()),
+                "layout": specs[idxs[0]].layout.to_json_dict(),
+                "options": opt.to_json_dict(),
+            }) for _key, idxs in order]
+            # the supervised fleet runner sits on the shared pool (which
+            # handles start-method selection, REPL-driver detection and
+            # nested-worker suppression) and adds deadlines, retry and
+            # killed-worker recovery; results=None means no fan-out is
+            # available here — go sequential.  A unit failing past its
+            # retry budget (FleetError) degrades the same way: the
+            # sequential path is bit-identical by contract.
+            from ..dist.fleet import FleetConfig, FleetError, run_fleet
+            fcfg = fleet if fleet is not None else FleetConfig()
+            if fcfg.max_inflight is None:
+                import dataclasses
+                fcfg = dataclasses.replace(fcfg, max_inflight=jobs)
+            try:
+                report = run_fleet(_compile_worker, payloads, fcfg,
+                                   inline_fallback=False)
+                outs = report.results
+            except FleetError:
+                report, outs = None, None
+            self.last_fleet_report = report
+            if outs is not None:
+                for (key, idxs), out in zip(order, outs):
+                    d = json.loads(out)
+                    if "map_error" in d:
+                        if use_cache:
+                            self._cache_store_error(key, d["map_error"],
+                                                    opt)
+                        unmapped(idxs, d["map_error"])
+                        continue
+                    spec = specs[idxs[0]]
+                    finish(key, idxs,
+                           Mapping.from_json_dict(d["mapping"], spec.dfg,
+                                                  spec.arch),
+                           SimConfig.from_json(json.dumps(d["cfg"])))
+                order = []
+        for key, idxs in order:              # sequential path / fallback
             spec = specs[idxs[0]]
             try:
                 mapping = map_kernel_opts(spec.dfg, spec.arch, spec.layout,
@@ -701,30 +775,55 @@ class Toolchain:
                     self._cache_store_error(key, _compile_error_str(e), opt)
                 unmapped(idxs, _compile_error_str(e))
                 continue
-            ck = self._finish(spec, opt, key, mapping, cfg, use_cache)
-            for i in idxs:
-                results[i] = ck
+            finish(key, idxs, mapping, cfg)
         return results
 
     # --------------------------------------------- instruction-stream export
     def export_streams(self, kernel, out_dir: str,
                        options: Optional[MapperOptions] = None
                        ) -> Dict[str, str]:
-        """The instruction-stream exporter (``isa/``) is not ported yet:
-        raises ``NotImplementedError`` (ROADMAP A2.4)."""
-        raise _deferred("Toolchain.export_streams")
+        """Lower a kernel to the per-PE instruction-stream artifact family
+        (``repro_torch.isa``): ``instructions.csv`` + ``kernel.asm`` +
+        ``stream_manifest.json`` written under ``out_dir``.
+
+        ``kernel`` may be a :class:`CompiledKernel`, a spec, or an
+        arch-deferred frontend program (compiled here first; compiles are
+        cache hits after the first).  The artifacts are byte-deterministic
+        — two cold exports of the same kernel are ``cmp``-identical —
+        which is what makes them a deployment format rather than a debug
+        dump.  Returns filename -> written path.
+        """
+        ck = (kernel if isinstance(kernel, CompiledKernel)
+              else self.compile(kernel, options))
+        from ..isa.encode import export_streams
+        return export_streams(ck, out_dir)
 
     def cross_validate(self, kernel, seeds: Sequence[int] = (0,),
-                       options: Optional[MapperOptions] = None
-                       ) -> CompiledKernel:
-        """The standalone interpreter (``isa/``) is not ported yet: raises
-        ``NotImplementedError`` (ROADMAP A2.4)."""
-        raise _deferred("Toolchain.cross_validate")
+                       options: Optional[MapperOptions] = None,
+                       device=None) -> CompiledKernel:
+        """Run the exporter -> standalone-interpreter loop and assert the
+        final memory image is bit-identical to ``simulate()`` (on
+        ``device``; ``None``: the CUDA card) for every seed — the flow's
+        independent second oracle (the interpreter shares no code with
+        the torch simulator).  Raises AssertionError on the first
+        diverging (seed, bank, word); returns the compiled kernel."""
+        ck = (kernel if isinstance(kernel, CompiledKernel)
+              else self.compile(kernel, options))
+        from ..isa.xval import cross_validate
+        cross_validate(ck, seeds=seeds, device=device)
+        return ck
 
     def check(self, kernel, options: Optional[MapperOptions] = None):
-        """The static legality checker (``check/``) is not ported yet:
-        raises ``NotImplementedError`` (ROADMAP A2.4)."""
-        raise _deferred("Toolchain.check")
+        """Static legality audit (``repro_torch.check``): run the mapping,
+        config and instruction-stream checkers over one kernel without
+        simulating it.  ``kernel`` may be a :class:`CompiledKernel`, a
+        spec, or an arch-deferred frontend program (compiled here first).
+        Returns the list of :class:`~repro_torch.check.Diagnostic` records
+        — empty for a clean artifact (the ``MORPHER_CHECK=1`` contract)."""
+        ck = (kernel if isinstance(kernel, CompiledKernel)
+              else self.compile(kernel, options))
+        from ..check import check_kernel
+        return check_kernel(ck)
 
     def verify_many(self, kernels: Iterable, seeds: Sequence[int] = (0,),
                     check_dfg: bool = True,
@@ -737,9 +836,15 @@ class Toolchain:
 
         ``kernels`` may mix :class:`CompiledKernel` artifacts, specs and
         arch-deferred frontend programs; anything uncompiled goes through
-        ``compile_many`` first (``jobs`` > 1 and ``fleet=`` raise
-        ``NotImplementedError``, see there).  Each kernel then verifies every seed in one
-        ``verify_batch`` pass on ``device`` (``None``: the CUDA card).
+        ``compile_many`` first — that process fan-out is the fleet-
+        supervised stage (pass a ``fleet``
+        :class:`~repro_torch.dist.fleet.FleetConfig` to shard it across
+        worker groups / inject faults; a lost worker re-queues its compile
+        units instead of crashing the fleet).  Each kernel then verifies
+        every seed in one ``verify_batch`` pass *in this process*, on
+        ``device`` (``None``: the CUDA card): fleet workers never
+        simulate, and the bit-exactness contract pins this path, so it
+        must not silently swap oracles under distribution.
         Raises AssertionError on the first mismatch; returns the compiled
         kernels in input order.
 
@@ -748,18 +853,12 @@ class Toolchain:
         their *config planes* into one multi-architecture cycle loop —
         same oracles, same word-for-word comparison, fewer launches.
         """
-        if fleet is not None:
-            raise _deferred("verify_many(fleet=...) (the supervised "
-                            "fleet runner)")
-        if jobs not in (None, 1):
-            raise _deferred(f"verify_many(jobs={jobs}) (the parallel "
-                            "compile)")
         items = list(kernels)
         compiled: List[Optional[CompiledKernel]] = [
             k if isinstance(k, CompiledKernel) else None for k in items]
         todo = [k for k, ck in zip(items, compiled) if ck is None]
         if todo:
-            done = iter(self.compile_many(todo, jobs=jobs))
+            done = iter(self.compile_many(todo, jobs=jobs, fleet=fleet))
             compiled = [ck if ck is not None else next(done)
                         for ck in compiled]
         if stacked:

@@ -32,18 +32,20 @@ from .kernels_lib import KernelSpec
 
 def xval_enabled() -> bool:
     """Opt-in second oracle: ``MORPHER_XVAL=1`` routes every verify through
-    the exported instruction stream + standalone interpreter in addition
-    to the simulator comparison.  The instruction-stream package is not
-    ported yet (ROADMAP A2.4), so the toolchain raises
-    ``NotImplementedError`` when this is set."""
+    the exported instruction stream + standalone interpreter
+    (``repro_torch.isa.xval``) in addition to the simulator comparison, so
+    a verify pass additionally certifies the deployment artifact; its
+    simulations run on the verify's own ``device``."""
     return os.environ.get("MORPHER_XVAL", "") == "1"
 
 
 def check_enabled() -> bool:
-    """Opt-in static gate: ``MORPHER_CHECK=1`` runs the static legality
-    checker at the top of every verify.  The checker is not ported yet
-    (ROADMAP A2.4), so the toolchain raises ``NotImplementedError`` when
-    this is set."""
+    """Opt-in static gate: ``MORPHER_CHECK=1`` runs the
+    ``repro_torch.check`` static legality checker at the top of every
+    verify, before any simulation (and as a DSE pre-screen).  Clean
+    compiled artifacts must be diagnostic-free, so under this gate a
+    verify additionally certifies the artifact's structural/temporal
+    legality without extra simulation."""
     return os.environ.get("MORPHER_CHECK", "") == "1"
 
 

@@ -83,3 +83,69 @@ def test_cgra_bench_without_a_card_raises(monkeypatch):
     for row in (bench.bench_sim_throughput, bench.bench_verify_batched):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             row()
+
+
+@pytest.fixture
+def two_kernels(monkeypatch):
+    """The verification set cut to GEMM and requant-int8."""
+    from repro_torch.core import kernels_lib
+    from repro_torch.frontend import library
+    table1, dsl = kernels_lib.table1_kernels, library.dsl_kernels
+    monkeypatch.setattr(kernels_lib, "table1_kernels", lambda **kw: {
+        "GEMM": table1(**kw)["GEMM"]})
+    monkeypatch.setattr(library, "dsl_kernels", lambda *a: {
+        "requant-int8": dsl(*a)["requant-int8"]})
+
+
+def test_isa_and_check_rows_on_cpu(two_kernels):
+    """isa_export_torch, isa_xval_torch and check_static_torch, with the
+    JAX package's derived keys, over two kernels of the set."""
+    exp, xval = bench.bench_isa_export("cpu")
+    assert (exp["name"], xval["name"]) == ("isa_export_torch",
+                                           "isa_xval_torch")
+    assert set(exp["derived"]) == {"kernels", "insns", "bytes",
+                                   "insns_per_s"}
+    assert set(xval["derived"]) == {"kernels", "seeds", "kernels_per_s"}
+    assert exp["derived"]["kernels"] == xval["derived"]["kernels"] == 2
+    assert exp["us"] > 0 and xval["us"] > 0
+    chk, = bench.bench_check_static("cpu")
+    assert chk["name"] == "check_static_torch"
+    d = chk["derived"]
+    assert set(d) == {"kernels", "diagnostics", "kernels_per_s",
+                      "verify_us", "verify_ratio"}
+    assert (d["kernels"], d["diagnostics"]) == (2, 0)
+
+
+def test_dse_rows_on_cpu(monkeypatch):
+    """dse_sweep_torch over one tiny variant and two suite kernels, and
+    dse_search_torch over two points, two kernels and two seeds."""
+    from repro_torch.dse import explore, space
+    tiny = space.tiny_space
+    monkeypatch.setattr(space, "tiny_space", lambda: tiny()[:1])
+    monkeypatch.setattr(explore, "SUITE_KERNELS", ("GEMM", "requant-int8"))
+    head, row = bench.bench_dse_sweep("cpu")
+    assert head["name"] == "dse_sweep_torch" and head["us"] > 0
+    d = head["derived"]
+    assert (d["variants"], d["verified"], d["kernels"], d["frontier"]) == \
+        (1, 1, 2, 1)
+    assert row["name"] == tiny()[0].name
+    assert row["derived"]["mapped"] == 2 and row["derived"]["pareto"] == 1
+
+    monkeypatch.setattr(bench, "SEARCH_POINTS", 2)
+    monkeypatch.setattr(bench, "SEARCH_KERNELS", ("GEMM", "requant-int8"))
+    monkeypatch.setattr(bench, "SEARCH_SEEDS", (0, 1))
+    row, = bench.bench_dse_search("cpu")
+    assert row["name"] == "dse_search_torch"
+    d = row["derived"]
+    assert (d["points"], d["kernels"], d["seeds"], d["units"]) == \
+        (2, 2, 2, 4)
+    assert d["builds_stacked"] <= d["builds_exhaustive"]
+    assert row["us"] > 0 and d["exhaustive_us"] > 0
+
+
+def test_tool_rows_without_a_card_raise(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for row in (bench.bench_isa_export, bench.bench_check_static,
+                bench.bench_dse_sweep, bench.bench_dse_search):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            row()

@@ -274,3 +274,27 @@ def test_32bit_datapath_matches_numpy_oracle():
         for i in range(len(SEEDS)):
             np.testing.assert_array_equal(got[i][bank], want[bank][i])
     port.verify_batch(SEEDS, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["requant-int8", "dwconv"])
+def test_opcode_outside_the_table_computes_zero_like_reference(kernels,
+                                                                name):
+    """A corrupt config (an opcode no ALU knows, as the checker's
+    ``opcode_clobber`` mutants make) runs as the JAX package runs it: the
+    lane's FU output becomes 0."""
+    from repro_torch.core.config_gen import MNEMONIC
+    ref, port, init = kernels[name]
+    live = np.argwhere(np.asarray(ref.cfg.op) > 1)
+    s, p = live[len(live) // 2]
+    op = np.array(ref.cfg.op)
+    op[s, p] = max(MNEMONIC) + 3
+    want = ref_sim.simulate_batch(dataclasses.replace(ref.cfg, op=op), init,
+                                  ref.invocations, ref.mapped_iters)
+    got = sim.simulate_batch(dataclasses.replace(port.cfg, op=op.copy()),
+                             init, port.invocations, port.mapped_iters,
+                             device="cpu")
+    _equal(want, got, name)
+    clean = sim.simulate_batch(port.cfg, init, port.invocations,
+                               port.mapped_iters, device="cpu")
+    assert any(not np.array_equal(g[k], c[k])
+               for g, c in zip(got, clean) for k in c)

@@ -1,11 +1,15 @@
 """The port's verify layer (``repro_torch.core.toolchain``): ``verify``,
 ``verify_batch``, ``verify_stacked`` and ``verify_many`` pass on the CPU;
 a corrupted configuration fails naming the seed, with the JAX package's
-message word for word; the deferred parts (``MORPHER_CHECK``,
-``MORPHER_XVAL``, the fleet, the instruction-stream and checker entry
-points) raise ``NotImplementedError``; without a card and without
-``device="cpu"`` the entry points raise; and the torch-free modules load
-neither torch, JAX nor the JAX package."""
+message word for word; the opt-in gates (``MORPHER_CHECK``,
+``MORPHER_XVAL``) pass a clean artifact and refuse a corrupt one; the
+fleet fan-out and the instruction-stream and checker entry points give
+what the sequential path and the JAX package give; without a card and
+without ``device="cpu"`` the entry points raise; and the torch-free
+modules load neither torch, JAX nor the JAX package."""
+import dataclasses
+import filecmp
+import json
 import os
 import subprocess
 import sys
@@ -76,42 +80,104 @@ def test_corrupted_config_names_the_seed_like_the_reference(gemm):
     assert str(got.value) == str(want.value)
 
 
+def _stores_never_valid(ck):
+    """``ck``'s instruction stream with every store's validity window
+    pushed past the end of time: the interpreter then diverges."""
+    from repro_torch.isa import CSV_NAME, MANIFEST_NAME, encode_kernel
+    from repro_torch.isa.interp import parse_stream
+    art = encode_kernel(ck)
+    lines = art[CSV_NAME].split("\n")
+    col = {c: i for i, c in enumerate(lines[0].split(","))}
+    out = [lines[0]]
+    for ln in lines[1:-1]:
+        v = ln.split(",")
+        if v[col["opcode"]] == "store":
+            v[col["tstart"]] = "1000000"
+        out.append(",".join(v))
+    return parse_stream("\n".join(out) + "\n",
+                        json.loads(art[MANIFEST_NAME]))
+
+
 @pytest.mark.parametrize("env", ["MORPHER_CHECK", "MORPHER_XVAL"])
-def test_verify_gates_are_deferred(gemm, env, monkeypatch):
+def test_verify_gates_pass_clean_and_refuse_corrupt(gemm, env, monkeypatch):
+    """Each gate passes the clean artifact through all three verify entry
+    points, and refuses a corrupt one: ``MORPHER_CHECK=1`` statically
+    (naming the rule) before anything is simulated, ``MORPHER_XVAL=1``
+    when the interpreter diverges from the simulator."""
+    from repro_torch.check.mutate import mutate_one
+    from repro_torch.core import simulator
+    from repro_torch.isa import xval
+
     monkeypatch.setenv(env, "1")
-    for call in (lambda: gemm.verify(device="cpu"),
-                 lambda: gemm.verify_batch(SEEDS, device="cpu"),
-                 lambda: verify_stacked([gemm], SEEDS, device="cpu")):
-        with pytest.raises(NotImplementedError, match="A2.4"):
+    assert gemm.verify(device="cpu") is gemm
+    assert gemm.verify_batch(SEEDS, device="cpu") is gemm
+    assert verify_stacked([gemm], SEEDS, device="cpu") == [gemm]
+    if env == "MORPHER_CHECK":
+        cfg, _desc = mutate_one(gemm, "store_window", seed=0, index=0)
+        bad, want = dataclasses.replace(gemm, cfg=cfg), "CFG-STORE-WINDOW"
+
+        def no_simulation(*a, **kw):
+            raise AssertionError("simulated a statically corrupt artifact")
+        for name in ("simulate", "simulate_batch", "simulate_multi"):
+            monkeypatch.setattr(simulator, name, no_simulation)
+    else:
+        tampered = _stores_never_valid(gemm)
+        monkeypatch.setattr(xval, "stream_for", lambda ck: tampered)
+        bad, want = gemm, "diverges"
+    for call in (lambda: bad.verify(device="cpu"),
+                 lambda: bad.verify_batch(SEEDS, device="cpu"),
+                 lambda: verify_stacked([bad], SEEDS, device="cpu")):
+        with pytest.raises(AssertionError, match=want):
             call()
 
 
-def test_fleet_and_stream_tools_are_deferred(gemm):
+def test_fleet_and_stream_tools_match_the_reference(gemm, tmp_path):
+    """``fleet=`` fans the compiles out through the supervised runner and
+    returns the sequential artifacts; ``export_streams`` writes the JAX
+    package's bytes; ``cross_validate`` and ``check`` pass."""
+    from repro.core.toolchain import Toolchain as RefToolchain
+    from repro_torch.dist.fleet import FleetConfig
+
+    specs = [gemm.spec, build_gemm(TI=4, TK=4, TJ=4, unroll=1)]
     tc = Toolchain(cache_dir="")
-    with pytest.raises(NotImplementedError, match="A2.4"):
-        tc.compile_many([gemm.spec], fleet=object())
-    with pytest.raises(NotImplementedError, match="A2.4"):
-        tc.verify_many([gemm], fleet=object(), device="cpu")
-    for call in (lambda: tc.export_streams(gemm, "unused"),
-                 lambda: tc.cross_validate(gemm),
-                 lambda: tc.check(gemm)):
-        with pytest.raises(NotImplementedError, match="A2.4"):
-            call()
+    got = tc.compile_many(specs, fleet=FleetConfig(groups=2, timeout_s=120))
+    want = Toolchain(cache_dir="").compile_many(specs, jobs=1)
+    assert [ck.to_json() for ck in got] == [ck.to_json() for ck in want]
+    assert tc.last_fleet_report is not None
+    assert tc.last_fleet_report.results is not None
+    out = tc.verify_many(specs, seeds=[0], fleet=FleetConfig(groups=2),
+                         device="cpu")
+    assert [ck.cache_key for ck in out] == [ck.cache_key for ck in got]
+
+    paths = tc.export_streams(gemm, str(tmp_path / "port"))
+    ref = RefCompiledKernel.from_json(gemm.to_json())
+    ref_paths = RefToolchain(cache_dir="").export_streams(
+        ref, str(tmp_path / "ref"))
+    assert sorted(paths) == sorted(ref_paths)
+    for name in paths:
+        assert filecmp.cmp(paths[name], ref_paths[name], shallow=False)
+    assert tc.cross_validate(gemm, seeds=(0, 1), device="cpu") is gemm
+    assert tc.check(gemm) == []
 
 
-def test_parallel_compile_is_deferred(gemm):
-    """``jobs`` above 1 asks for the JAX package's parallel compile, which
-    is not ported: it raises; 1 and the default take the sequential
-    path."""
-    tc = Toolchain(cache_dir="")
+def test_parallel_compile_matches_sequential(gemm):
+    """``jobs`` above 1 fans the compiles out to worker processes (when
+    the platform gives a pool): the artifacts are the sequential path's
+    byte for byte, and ``verify_many`` forwards ``jobs``."""
+    from repro_torch.core import pool
+
+    specs = [gemm.spec, build_gemm(TI=4, TK=4, TJ=4, unroll=1)]
+    want = [ck.to_json()
+            for ck in Toolchain(cache_dir="").compile_many(specs, jobs=1)]
     for jobs in (2, 8):
-        with pytest.raises(NotImplementedError, match="A2.4"):
-            tc.compile_many([gemm.spec], jobs=jobs)
-        with pytest.raises(NotImplementedError, match="A2.4"):
-            tc.verify_many([gemm], jobs=jobs, device="cpu")
-    ck, = tc.compile_many([gemm.spec], jobs=1)
-    assert ck.to_json() == gemm.to_json()
-    assert tc.verify_many([gemm.spec], jobs=1, device="cpu")[0] is ck
+        tc = Toolchain(cache_dir="")
+        assert [ck.to_json()
+                for ck in tc.compile_many(specs, jobs=jobs)] == want
+        assert (tc.last_fleet_report is not None) == \
+            (pool.shared_pool() is not None)
+        tc = Toolchain(cache_dir="")
+        out = tc.verify_many(specs, seeds=[0, 1], jobs=jobs, device="cpu")
+        assert [ck.to_json() for ck in out] == want
 
 
 def test_entry_points_need_a_card_unless_told(gemm, monkeypatch):

@@ -832,3 +832,72 @@ def test_cgra_verify_stacked_on_card():
     assert verify_stacked(cks, range(64), device="cuda") == cks
     for ck in cks:
         ck.verify_batch(range(8), device="cuda")
+
+
+# ------------------------------------------------- the CGRA flow's tools
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", CGRA_SET)
+def test_cgra_cross_validate_on_card(cgra_set, name):
+    """The standalone interpreter ≡ the simulator on the card, 4 seeds."""
+    from repro_torch.isa import cross_validate
+    assert cross_validate(cgra_set[name], seeds=range(4),
+                          device="cuda") == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("env", ["MORPHER_CHECK", "MORPHER_XVAL"])
+def test_cgra_verify_gates_on_card(cgra_set, env, monkeypatch):
+    from repro_torch.core.toolchain import verify_stacked
+    monkeypatch.setenv(env, "1")
+    cks = list(cgra_set.values())
+    for ck in cks:
+        ck.verify_batch(range(4), device="cuda")
+    assert verify_stacked(cks, range(2), device="cuda") == cks
+
+
+@pytest.mark.gpu
+def test_cgra_mutation_gate_on_card_matches_cpu(cgra_set):
+    from repro_torch.check.mutate import MIN_SCORE, mutation_gate
+    cks = list(cgra_set.values())
+    card = mutation_gate(cks, device="cuda")
+    assert card.score >= MIN_SCORE
+    assert card.to_json_dict() == mutation_gate(cks, device="cpu") \
+        .to_json_dict()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cls", ["mux_select", "store_window",
+                                 "bank_clobber", "rf_overcommit",
+                                 "load_hazard", "opcode_clobber",
+                                 "livein_clobber", "nbr_clobber"])
+def test_cgra_probe_on_card_matches_cpu(cgra_set, cls):
+    """The dead-mutant probe simulates every config-layer mutant class on
+    the card (the gate probes only the checker's misses, and the library
+    has none): the card's verdict is the CPU's."""
+    from repro_torch.check.mutate import CLASSES, _probe_dead, mutate_one
+    layer = CLASSES[cls][0]
+    for name in ("requant-int8", "dwconv"):
+        ck = cgra_set[name]
+        made = mutate_one(ck, cls, seed=0, index=0)
+        if made is not None:
+            assert _probe_dead(ck, layer, made[0], device="cuda") == \
+                _probe_dead(ck, layer, made[0], device="cpu"), made[1]
+
+
+@pytest.mark.gpu
+def test_dse_tiny_frontier_on_card_matches_cpu(tmp_path):
+    """tiny[:2]: the sweep verifying on the card writes the frontier the
+    sweep verifying on the CPU writes, byte for byte."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core import MapperOptions, Toolchain
+    from repro_torch.dse import get_space, run_sweep, write_artifacts
+    points = get_space("tiny")[:2]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tc = Toolchain(options=MapperOptions(ii_max=20),
+                       cache_dir=str(tmp_path / "cache"))
+        res = run_sweep(points, toolchain=tc, device=dev)
+        write_artifacts(res, str(tmp_path / dev), space="tiny")
+        out[dev] = (tmp_path / dev / "dse_frontier.json").read_bytes()
+    assert out["cuda"] == out["cpu"]

@@ -1,7 +1,8 @@
-"""The port stands alone: no module of repro_torch, and not chip_smoke.py,
-imports JAX or the JAX package, and importing the serving engine or the
-kernel path (the Table-I kernels' ops and the micro-benchmark) loads
-neither."""
+"""The port stands alone: no module of repro_torch, not chip_smoke.py and
+no examples/*_torch.py imports JAX or the JAX package; importing the
+serving engine or the kernel path (the Table-I kernels' ops and the
+micro-benchmark) loads neither; and the flow's tools (isa, check, dse,
+dist), which fleet worker processes import, load not even torch."""
 import ast
 import os
 import subprocess
@@ -12,7 +13,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -38,6 +39,19 @@ def test_engine_import_loads_neither_jax_nor_reference():
             "repro_torch.kernels.qgemm_int8.ops, repro_torch.bench; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_tool_packages_load_neither_torch_nor_jax():
+    code = ("import sys; import repro_torch.isa, repro_torch.check, "
+            "repro_torch.dse, repro_torch.dist, repro_torch.isa.__main__, "
+            "repro_torch.check.__main__, repro_torch.check.mutate; "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('torch', 'jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
