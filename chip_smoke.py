@@ -61,16 +61,34 @@
    benchmarks/results/after/dse_frontier_tiny.json; (e) an NSGA-II search
    verifying on the card, its frontier byte-equal to the CPU's.  Prints
    the tools' bench rows (repro_torch.bench) and each step's seconds.
-6. Serves llama3.2-1b and then rwkv6-1.6b at full width and depth (random
-   weights from a seed) through the port's Engine: 12 requests over 8
-   slots each, so slots are reused, and checks that the model's kernel
-   ran once per layer in every decode step (decode_attn, on the tensor
-   cores) or in every decode step and every prefill (wkv6: decode on the
-   step route, each prefill on the route its length gives).  Then holds
-   one decode step's logits, kernel-backed, against the same step with
-   the plain version, and profiles a few decode steps.
-7. Prints the kernels as one JSON line, the card's name and power limit,
-   and as its last line {"ok": true, "device": {...}}.
+6. CGRA-backed serving (phase_serve_cgra): builds on the host the
+   ServePlan of each of the ten configs at 64 tokens on cluster_4x4,
+   round-trips each through to_json / from_json, embedded and ref-only
+   (resolved through Toolchain.load_artifact), and prints its sha256;
+   spot-checks llama3.2-1b's plan on the card (seeds 0-255) and on the
+   CPU (seeds 0-3); serves llama3.2-1b at full width and depth on the
+   card under CGRAExecutionModel(plan), 12 Poisson requests over 4 slots,
+   with decode_attn on the tensor cores once per layer and decode step,
+   and holds the report byte for byte to a CPU engine's over the same
+   config cut to one layer; then runs repro_torch.bench.
+   bench_serve_decode on the card, whose rows must equal the committed
+   benchmarks/results/after/BENCH_serve_decode.json rows.
+7. Serves llama3.2-1b, rwkv6-1.6b, llama3.2-3b, codeqwen1.5-7b and
+   granite-34b at full width (random weights from a seed) through the
+   port's Engine, all at full depth but granite-34b, cut to 40 of its 88
+   layers (88 layers of bf16 weights take 88 GiB, more than the card):
+   12 requests over 8 slots each, so slots are reused, and checks that
+   the model's kernel ran once per layer in every decode step
+   (decode_attn, on the tensor cores, at head_dim 64 or 128 and GQA
+   groups 4, 3, 1 and 48) or in every decode step and every prefill
+   (wkv6: decode on the step route, each prefill on the route its length
+   gives).  Then holds one decode step's logits, kernel-backed, against
+   the same step with the plain version, and profiles a few decode steps
+   (the kernel's share of the device-busy time and of the step).
+8. Prints each phase's seconds, the kernels as one JSON line (launches:
+   the sums over the serving paths of steps 6 and 7, and the kernel
+   path), the card's name and power limit, and as its last line
+   {"ok": true, "device": {...}}.
 
 Run from the repository root:  python3 chip_smoke.py
 Any failure exits nonzero; without a card it exits 1 before doing work.
@@ -78,6 +96,7 @@ Any failure exits nonzero; without a card it exits 1 before doing work.
 from __future__ import annotations
 
 import filecmp
+import gc
 import hashlib
 import json
 import math
@@ -151,6 +170,20 @@ TOOLS_SEARCH = dict(algo="nsga2", seed=0, generations=3, population=4)
 # only after minutes of II escalation)
 TOOLS_CHECK_8X8 = ("GEMM", "GEMM-U", "CONV", "avgpool2x2",
                    "gemm-bias-relu", "requant-int8")
+# phase_serve_cgra: the plans' token count, the spot check's seeds on each
+# device, and the --cgra episode (the reference's bench_serve_decode
+# traffic, at the example's batch and max_len)
+CGRA_PLAN_TOKENS = 64
+CGRA_SPOT_SEEDS = {"cuda": range(256), "cpu": range(4)}
+CGRA_TRAFFIC = dict(seed=0, n_requests=12, arrival_rate=100.0)
+CGRA_BATCH, CGRA_MAX_LEN = 4, 64
+SERVE_DECODE_BENCH = os.path.join(ROOT, "benchmarks", "results", "after",
+                                  "BENCH_serve_decode.json")
+# The served configs and the depth each is cut to (None: full depth):
+# granite-34b's 88 layers take 88 GiB of bf16 weights, more than the
+# card's 80 GB, so it is served at 40 (about 41 GiB)
+SERVED = (("llama3.2-1b", None), ("rwkv6-1.6b", None), ("llama3.2-3b", None),
+          ("codeqwen1.5-7b", None), ("granite-34b", 40))
 GOLDEN_CSV = os.path.join(ROOT, "tests", "golden_gemm_small_instructions.csv")
 TINY_FRONTIER = os.path.join(ROOT, "benchmarks", "results", "after",
                              "dse_frontier_tiny.json")
@@ -937,10 +970,7 @@ def phase_table1_kernels(card: str):
     torch.cuda.synchronize()
     routed = {"gemm_os": gemm_os, "conv2d_os": conv2d_os,
               "qgemm_int8": qgemm_int8, "decode_attn": decode_attn}
-    for op in OPS.values():
-        op.launches = 0
-    for op in routed.values():
-        op.launches_by_route.update(dict.fromkeys(op.launches_by_route, 0))
+    _zero_counts(*OPS.values())
     rows = bench_kernel_micro()
     torch.cuda.synchronize()
     launches = {name: op.launches for name, op in OPS.items()}
@@ -969,42 +999,73 @@ def phase_table1_kernels(card: str):
     return entries, {e["name"]: launches[e["name"]] for e in entries}
 
 
-def _serve_spec(arch: str):
+def _serve_spec(cfg):
     """(kernel op, module whose attribute names it, plain version, kernel
     launches per layer and admitted prompt, a part of the names of the
-    op's device kernels) of ``arch``'s path."""
-    if arch == "llama3.2-1b":
+    op's device kernels) of the path of ``cfg``'s family: the dense
+    transformer decodes through decode_attn, rwkv6 (ssm) through wkv6."""
+    if cfg.family == "dense":
         import repro_torch.models.attention as module
         from repro_torch.kernels.decode_attn.ops import decode_attn as op
         from repro_torch.kernels.decode_attn.ref import decode_attn_ref as ref
         return op, module, ref, 0, "decode_"
-    import repro_torch.models.rwkv6 as module
-    from repro_torch.kernels.wkv6.ops import wkv6 as op
-    from repro_torch.kernels.wkv6.ref import wkv6_ref as ref
-    return op, module, ref, 1, "wkv6_"
+    if cfg.family == "ssm":
+        import repro_torch.models.rwkv6 as module
+        from repro_torch.kernels.wkv6.ops import wkv6 as op
+        from repro_torch.kernels.wkv6.ref import wkv6_ref as ref
+        return op, module, ref, 1, "wkv6_"
+    raise ValueError(f"{cfg.name}: no serving path for family {cfg.family}")
 
 
-def phase_serve(card: str, arch: str):
-    """``arch`` at full width and depth, served through the Engine; its
-    kernel runs once per layer in every decode step and, with
-    ``per_prompt``, in every prefill."""
+def _zero_counts(*ops) -> None:
+    """Sets the launch counts of ``ops``, in all and by route, to 0."""
+    for op in ops:
+        op.launches = 0
+        op.launches_by_route.update(dict.fromkeys(op.launches_by_route, 0))
+
+
+def _counts(op) -> dict:
+    """``op``'s launch counts, in all and by route, keyed as main sums them."""
+    name = op.__name__
+    return {name: op.launches,
+            **{f"{name}:{r}": n for r, n in op.launches_by_route.items()}}
+
+
+def _add_counts(total: dict, more: dict) -> None:
+    for key, n in more.items():
+        total[key] = total.get(key, 0) + n
+
+
+def phase_serve(card: str, arch: str, n_layers=None):
+    """``arch`` at full width, served through the Engine at full depth or
+    cut to ``n_layers``; its kernel runs once per layer in every decode
+    step and, with ``per_prompt``, in every prefill."""
+    import dataclasses
+
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.decode_attn.ops import decode_attn
     from repro_torch.kernels.wkv6.ops import wkv6
     from repro_torch.models.zoo import build_model, cache_tensors
     from repro_torch.serve.engine import Engine, Request
 
-    op, module, ref, per_prompt, device_kernel = _serve_spec(arch)
-    name = op.__name__
     cfg = get_config(arch)
+    depth = f"{cfg.n_layers} layers"
+    if n_layers is not None and n_layers != cfg.n_layers:
+        depth = f"{n_layers} of {cfg.n_layers} layers (depth cut, widths " \
+                f"as published)"
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    op, module, ref, per_prompt, device_kernel = _serve_spec(cfg)
+    name = op.__name__
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=model.device).manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}"
-          f", {n_params / 1e9:.3f} B parameters ({cfg.dtype}), init "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"[serve] {cfg.name}: {depth}, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.hd}, "
+          f"{'tied' if cfg.tie_embeddings else 'untied'} head, vocab "
+          f"{cfg.vocab}, {n_params / 1e9:.3f} B parameters ({cfg.dtype}), "
+          f"init {time.perf_counter() - t0:.1f} s")
     eng = Engine(model, params, batch=B, max_len=S_MAX)
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i,
@@ -1017,10 +1078,7 @@ def phase_serve(card: str, arch: str):
     prefill_s, decode_s, steps, decoded, prompt_tokens = 0.0, 0.0, 0, 0, 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    decode_attn.launches = wkv6.launches = 0
-    for routed in (decode_attn, wkv6):
-        routed.launches_by_route.update(
-            dict.fromkeys(routed.launches_by_route, 0))
+    _zero_counts(decode_attn, wkv6)
     while pending or eng.n_active:
         while pending and eng.has_free_slot():
             req = pending.popleft()
@@ -1035,6 +1093,7 @@ def phase_serve(card: str, arch: str):
         torch.cuda.synchronize()
         decode_s += time.perf_counter() - t0
         steps += 1
+    counts = _counts(op)
     launches = op.launches
     by_route = dict(op.launches_by_route)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1052,7 +1111,7 @@ def phase_serve(card: str, arch: str):
                                  f"{len(r.out)}/{r.max_new} tokens")
     how = f"{cfg.n_layers} x {steps}" if not per_prompt else \
         f"{cfg.n_layers} x ({steps} + {N_REQUESTS})"
-    if op is decode_attn:     # bf16 at D 64, G 4: the tensor-core route
+    if op is decode_attn:     # bf16, every D and G: the tensor-core route
         how += f", {ran_on(decode_attn, 'tensor_core', name)} route"
     else:     # decode steps on the step route, each prefill by its length
         from repro_torch.kernels.wkv6.kernel import route as wkv6_route
@@ -1111,7 +1170,154 @@ def phase_serve(card: str, arch: str):
         raise AssertionError("kernel-backed decode logits disagree with the "
                              "plain-backed ones")
     profile_steps(eng, card, device_kernel)
-    return {name: launches, **{f"{name}:{r}": n for r, n in by_route.items()}}
+    return counts
+
+
+def phase_serve_cgra(card: str) -> dict:
+    """CGRA-backed serving (the reference's serve_decode --cgra):
+    1. on the host, the ServePlan of each of the ten configs at
+       CGRA_PLAN_TOKENS tokens on cluster_4x4, each round-tripped through
+       to_json / from_json, embedded and ref-only (resolved through
+       Toolchain.load_artifact from the memo and from the disk cache);
+    2. llama3.2-1b's plan spot-checked on the card (CGRA_SPOT_SEEDS) and
+       on the CPU, with the same verdict;
+    3. llama3.2-1b at full width and depth served on the card under
+       CGRAExecutionModel(plan) through run_traffic: decode_attn once per
+       layer and decode step on the tensor cores, and the report
+       byte-equal to a CPU engine's over the config cut to one layer (the
+       modeled clock depends on the plan, the lengths and the slots only;
+       the vocab, which moves the prompt RNG, stays);
+    4. repro_torch.bench.bench_serve_decode() on the card, its rows equal
+       to the committed BENCH_serve_decode.json rows.
+    Returns the kernels' launches in steps 3 and 4."""
+    import dataclasses
+
+    from repro_torch.bench import SERVE_ARCHS, bench_serve_decode
+    from repro_torch.configs.registry import (ARCH_IDS, get_config,
+                                              serve_smoke_config)
+    from repro_torch.core.adl import cluster_4x4
+    from repro_torch.core.toolchain import Toolchain
+    from repro_torch.kernels.decode_attn.ops import decode_attn
+    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.plan import (CGRAExecutionModel, ServePlan,
+                                        build_serve_plan)
+    from repro_torch.serve.traffic import (TrafficConfig, report_json,
+                                           run_traffic)
+
+    cache = os.path.join(ROOT, "build", "chip_smoke", "plan_cache")
+    shutil.rmtree(cache, ignore_errors=True)
+    tc = Toolchain(arch=cluster_4x4(), cache_dir=cache)
+    t0 = time.perf_counter()
+    plans = {}
+    for arch_id in ARCH_IDS:
+        plan = build_serve_plan(get_config(arch_id), toolchain=tc,
+                                tokens=CGRA_PLAN_TOKENS, spot_check=False)
+        blob = plan.to_json()
+        refs = plan.to_json(embed_kernels=False)
+        for how, text, via in (("embedded", blob, None),
+                               ("ref-only, memo", refs, tc),
+                               ("ref-only, disk",
+                                refs, Toolchain(cache_dir=cache))):
+            if ServePlan.from_json(text, toolchain=via).to_json() != blob:
+                raise AssertionError(f"{arch_id}: the {how} plan does not "
+                                     f"round-trip")
+        tiles = sorted({"x".join(map(str, st.tile)) for st in plan.sites})
+        print(f"[serve_cgra] step 1 {arch_id}: {len(plan.sites)} sites, "
+              f"tiles {tiles}, decode step at B 8 "
+              f"{plan.decode_step_s(8) * 1e3:.3f} ms modeled; round trips "
+              f"embedded / ref-only (memo, disk) equal; plan sha256 "
+              f"{hashlib.sha256(blob.encode()).hexdigest()}")
+        plans[arch_id] = plan
+    print(f"[serve_cgra] step 1: {len(plans)} plans built and round-tripped "
+          f"on the host in {time.perf_counter() - t0:.2f} s")
+
+    plan = plans["llama3.2-1b"]
+    n_sites = len(plan.sites)
+    verdicts = {}
+    for dev, seeds in CGRA_SPOT_SEEDS.items():
+        t0 = time.perf_counter()
+        verdicts[dev] = plan.spot_check(seeds=seeds, n_sites=n_sites,
+                                        device=dev)
+        print(f"[serve_cgra] step 2 spot check on {dev}, seeds "
+              f"{seeds.start}-{seeds.stop - 1}: {verdicts[dev]} verified "
+              f"bit-exactly in {time.perf_counter() - t0:.2f} s")
+    if verdicts["cuda"] != verdicts["cpu"]:
+        raise AssertionError(f"spot checks differ: {verdicts}")
+
+    cfg = get_config("llama3.2-1b")
+    traffic = TrafficConfig(**CGRA_TRAFFIC)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=model.device).manual_seed(0))
+    eng = Engine(model, params, batch=CGRA_BATCH, max_len=CGRA_MAX_LEN,
+                 exec_model=CGRAExecutionModel(plan))
+    torch.cuda.synchronize()
+    _zero_counts(decode_attn, wkv6)
+    t0 = time.perf_counter()
+    report = run_traffic(eng, traffic, cfg.vocab)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = {**_counts(decode_attn), **_counts(wkv6)}
+    want = cfg.n_layers * report["decode_steps"]
+    if decode_attn.launches != want or wkv6.launches:
+        raise AssertionError(f"the --cgra episode launched decode_attn "
+                             f"{decode_attn.launches} times (not {want}) "
+                             f"and wkv6 {wkv6.launches} times")
+    route = ran_on(decode_attn, "tensor_core", "the --cgra episode")
+    del eng, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cpu_cfg = dataclasses.replace(cfg, n_layers=1)
+    cpu_model = build_model(cpu_cfg, device="cpu")
+    cpu_eng = Engine(cpu_model,
+                     cpu_model.init(torch.Generator().manual_seed(0)),
+                     batch=CGRA_BATCH, max_len=CGRA_MAX_LEN,
+                     exec_model=CGRAExecutionModel(plan), device="cpu")
+    text = report_json(report)
+    if report_json(run_traffic(cpu_eng, traffic, cfg.vocab)) != text:
+        raise AssertionError("the card's --cgra report differs from the "
+                             "CPU engine's")
+    del cpu_eng, cpu_model
+    print(f"[serve_cgra] step 3 {cfg.name} ({cfg.n_layers} layers) under "
+          f"the plan, batch {CGRA_BATCH}, max_len {CGRA_MAX_LEN}, "
+          f"{traffic}: served {report['served']}, "
+          f"{report['decoded_tokens']} tokens in {report['decode_steps']} "
+          f"decode steps; decode_attn launches {want} = {cfg.n_layers} x "
+          f"{report['decode_steps']} on the {route} route; modeled "
+          f"{report['tokens_per_s']} tokens/s over "
+          f"{report['episode_s']} modeled s; host {host_s:.2f} s for the "
+          f"episode [{card}]; report byte-equal to the CPU engine's (1 "
+          f"layer), sha256 {hashlib.sha256(text.encode()).hexdigest()}")
+
+    with open(SERVE_DECODE_BENCH, encoding="utf-8") as f:
+        committed = json.load(f)["rows"]
+    _zero_counts(decode_attn, wkv6)
+    t0 = time.perf_counter()
+    rows = bench_serve_decode()
+    torch.cuda.synchronize()
+    bench_s = time.perf_counter() - t0
+    _add_counts(launches, {**_counts(decode_attn), **_counts(wkv6)})
+    if rows != committed:
+        raise AssertionError(f"bench_serve_decode rows {rows} differ from "
+                             f"the committed {committed}")
+    smoke = {a: serve_smoke_config(a).n_layers for a in SERVE_ARCHS}
+    llama, rwkv = (r["derived"] for r in rows)
+    want = {"decode_attn": smoke["llama3.2-1b"] * llama["decode_steps"],
+            "wkv6": smoke["rwkv6-1.6b"] * (rwkv["decode_steps"]
+                                           + rwkv["served"])}
+    got = {"decode_attn": decode_attn.launches, "wkv6": wkv6.launches}
+    if got != want:
+        raise AssertionError(f"bench_serve_decode launched {got}, not "
+                             f"{want}")
+    for r in rows:
+        print(f"[serve_cgra] step 4 {r['name']}: {r['us']} us modeled, "
+              f"{json.dumps(r['derived'])}")
+    print(f"[serve_cgra] step 4 bench_serve_decode on the card: rows equal "
+          f"the committed ones; launches {got} (by route: decode_attn "
+          f"{decode_attn.launches_by_route}, wkv6 "
+          f"{wkv6.launches_by_route}); host {bench_s:.2f} s [{card}]")
+    return launches
 
 
 def profile_steps(eng, card: str, kernel: str) -> None:
@@ -1144,6 +1350,11 @@ def profile_steps(eng, card: str, kernel: str) -> None:
     for e in ranked[:8] + [e for e in ranked[8:] if kernel in e.key]:
         print(f"[profile]   {dev_us(e) / 1e3 / PROFILE_STEPS:.4f} ms/step, "
               f"{e.count / PROFILE_STEPS:.0f} launches/step: {e.key[:100]}")
+    own_ms = sum(dev_us(e) for e in kernels
+                 if kernel in e.key) / 1e3 / PROFILE_STEPS
+    print(f"[profile]   the {kernel}* kernels: {own_ms:.4f} ms/step, "
+          f"{own_ms / busy_ms:.3f} of the device-busy time, "
+          f"{own_ms / wall_ms:.3f} of the step [{card}]")
 
 
 class _StageClock:
@@ -1688,21 +1899,44 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     card = card_line()
+    t_start = time.perf_counter()
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}"
           f", CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    clock = time.perf_counter()
+
+    def lap(label: str) -> None:
+        nonlocal clock
+        now = time.perf_counter()
+        print(f"[env] {label}: {now - clock:.1f} s")
+        clock = now
+
     phase_build()
+    lap("build")
     entries = [phase_decode_attn_check(card), *phase_wkv6_check(card)]
+    lap("decode_attn and wkv6 checks")
     table1, launches = phase_table1_kernels(card)
     entries += table1
-    phase_cgra_tools(card, phase_cgra(card))
-    for arch in ("llama3.2-1b", "rwkv6-1.6b"):
-        launches.update(phase_serve(card, arch))
+    lap("Table-I kernels and the kernel path")
+    cks = phase_cgra(card)
+    lap("phase_cgra")
+    phase_cgra_tools(card, cks)
+    lap("phase_cgra_tools")
+    _add_counts(launches, phase_serve_cgra(card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase_serve_cgra")
+    for arch, n_layers in SERVED:
+        _add_counts(launches, phase_serve(card, arch, n_layers))
+        gc.collect()
         torch.cuda.empty_cache()
+        lap(f"phase_serve {arch}")
     for entry in entries:     # a routed kernel's entry: its route's count
         key = f"{entry['name']}:{entry.get('kernel_route')}"
         entry["launches"] = launches.get(key, launches[entry["name"]])
+    print(f"[env] chip_smoke took {time.perf_counter() - t_start:.1f} s "
+          f"[{card}]")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

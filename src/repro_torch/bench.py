@@ -27,6 +27,12 @@ over the ten-kernel verification set, on ``device``.
 ``benchmarks/run.py``'s rows of the same names without the suffix, with
 the same ``derived`` keys; their simulations run on ``device``.
 
+``bench_serve_decode`` gives the rows ``serve_decode_llama3.2-1b`` and
+``serve_decode_rwkv6-1.6b`` of ``benchmarks/run.py``'s ``serve_decode``
+bench, under the reference's names: CGRA-backed serving of the smoke
+configs on plan-modeled latency, the engine and the plan's spot check on
+``device``.
+
 ``time_ms`` is the port's timer of device work, also used by
 ``chip_smoke.py``.
 """
@@ -463,3 +469,46 @@ def bench_dse_search(device: DeviceLike = None) -> List[Dict]:
                              warm_us=round(warm_flat * 1e6),
                              warm_exhaustive_us=round(warm_exh * 1e6),
                              **_simcache_derived(simcache.stats()))}]
+
+
+SERVE_ARCHS = ("llama3.2-1b", "rwkv6-1.6b")
+
+
+def bench_serve_decode(device: DeviceLike = None) -> List[Dict]:
+    """End-to-end CGRA-backed serving on the smoke configs, the
+    counterpart of ``benchmarks/run.py``'s row of the same name: build a
+    ServePlan (feasible tiles, compile_many, one site spot-checked
+    bit-exactly against the cycle-accurate simulator on ``device``), then
+    run a seeded Poisson traffic episode through the engine on ``device``
+    on plan-derived latency.  Rows carry the *modeled* episode duration
+    and throughput under the reference's names, so they compare byte for
+    byte with its ``BENCH_serve_decode.json`` rows."""
+    from .configs.registry import serve_smoke_config
+    from .core.toolchain import Toolchain
+    from .models.zoo import build_model
+    from .serve.engine import Engine
+    from .serve.plan import CGRAExecutionModel, build_serve_plan
+    from .serve.traffic import TrafficConfig, report_bench_rows, run_traffic
+
+    dev = resolve_device(device)
+    cache = tempfile.mkdtemp(prefix="morpher-serve-bench-")
+    rows: List[Dict] = []
+    try:
+        tc = Toolchain(cache_dir=cache)
+        for arch_id in SERVE_ARCHS:
+            cfg = serve_smoke_config(arch_id)
+            plan = build_serve_plan(cfg, toolchain=tc, device=dev)
+            model = build_model(cfg, device=dev)
+            params = model.init(torch.Generator(device=dev).manual_seed(0))
+            eng = Engine(model, params, batch=4, max_len=48,
+                         exec_model=CGRAExecutionModel(plan), device=dev)
+            report = run_traffic(
+                eng, TrafficConfig(seed=0, n_requests=12,
+                                   arrival_rate=100.0), cfg.vocab)
+            rows += report_bench_rows(report,
+                                      name=f"serve_decode_{arch_id}",
+                                      sites=len(plan.sites),
+                                      tiles=len(plan.kernels))
+        return rows
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)

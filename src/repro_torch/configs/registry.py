@@ -1,7 +1,10 @@
 """Architecture registry: --arch <id> resolves here.
 
-The port carries the config files of the architectures it serves; the
-others are named so a caller gets a clear error instead of a KeyError.
+Each config file defines CONFIG with the reference's values; the registry
+maps ids -> ModelConfig for all ten.  Families the port does not build yet
+(hybrid, MoE / MLA / MTP, embedding inputs) are refused by
+``repro_torch.models.zoo.build_model``, not here: their configs still feed
+the GEMM-site analyzer (``repro_torch.core.offload``) and serve plans.
 """
 from __future__ import annotations
 
@@ -23,18 +26,12 @@ ARCH_IDS = [
     "deepseek-v3-671b",
 ]
 
-PORTED = ("llama3.2-1b", "rwkv6-1.6b")
-
 _MODULE = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in _MODULE:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
-    if arch_id not in PORTED:
-        raise NotImplementedError(
-            f"config of {arch_id!r} is not ported yet (ROADMAP queue A); "
-            f"ported: {list(PORTED)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULE[arch_id]}")
     return mod.CONFIG
 

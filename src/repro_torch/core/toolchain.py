@@ -594,6 +594,18 @@ class Toolchain:
                 self._memo[key] = hit
         return hit
 
+    def load_artifact(self, cache_key: str) -> Optional[CompiledKernel]:
+        """Resolve a compiled artifact by its content address: in-process
+        memo first, then the on-disk cache.  Returns None when the key is
+        unknown — how serve plans serialized with kernel *refs* instead of
+        embedded artifacts (``ServePlan.to_json(embed_kernels=False)``)
+        re-resolve their kernels on load."""
+        with self._lock:
+            hit = self._memo.get(cache_key)
+        if hit is not None:
+            return hit
+        return self._cache_load(cache_key)
+
     def _finish(self, spec: KernelSpec, opt: MapperOptions, key: str,
                 mapping: Mapping, cfg: SimConfig,
                 use_cache: bool) -> CompiledKernel:

@@ -5,7 +5,7 @@ The harness drives :class:`repro_torch.serve.engine.Engine` with a reproducible
 open-loop workload — exponential (Poisson-process) interarrival times,
 mixed prompt lengths and decode budgets — and measures the episode
 against the engine's *modeled* clock (the execution model's per-step CGRA
-latency; the CGRA execution model is not ported yet).  Requests that
+latency, see ``repro_torch.serve.plan.CGRAExecutionModel``).  Requests that
 arrive while every slot is busy wait in an admission queue; slots recycle
 as requests finish, so the episode exercises continuous batching under
 slot pressure.
@@ -102,7 +102,7 @@ def run_traffic(engine: Engine, traffic: TrafficConfig,
     statistic degenerate."""
     if engine.exec_model is None:
         raise ValueError("run_traffic needs an engine with an exec_model "
-                         "(e.g. FixedLatencyModel)")
+                         "(CGRAExecutionModel or FixedLatencyModel)")
     arrivals = generate_requests(traffic, vocab)
     pending = deque(arrivals)
     tracked: Dict[int, Request] = {}

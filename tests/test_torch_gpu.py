@@ -901,3 +901,74 @@ def test_dse_tiny_frontier_on_card_matches_cpu(tmp_path):
         write_artifacts(res, str(tmp_path / dev), space="tiny")
         out[dev] = (tmp_path / dev / "dse_frontier.json").read_bytes()
     assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.gpu
+def test_serve_plan_spot_check_on_card():
+    """llama3.2-1b's plan spot-checks every distinct tile on the card over
+    64 seeds, naming the sites the CPU's check names."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import Toolchain
+    from repro_torch.serve.plan import build_serve_plan
+    plan = build_serve_plan(get_config("llama3.2-1b"),
+                            toolchain=Toolchain(cache_dir=""),
+                            spot_check=False)
+    n = len(plan.sites)
+    assert plan.spot_check(seeds=range(64), n_sites=n) == \
+        plan.spot_check(seeds=range(4), n_sites=n, device="cpu") == \
+        [plan.sites[0].name]
+
+
+# head_dim 128 at the dense configs' own GQA groups, narrow otherwise
+DENSE_GROUPS = {"llama3.2-3b": (6, 2), "codeqwen1.5-7b": (4, 4),
+                "granite-34b": (48, 1)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch_id", sorted(DENSE_GROUPS))
+def test_dense_decode_step_kernel_matches_plain(arch_id, monkeypatch):
+    """One bf16 decode step of a two-layer model at head_dim 128 and the
+    config's group (G 3, 1, 48): decode_attn on the tensor-core route, one
+    launch per layer, logits within 5% of the largest logit of the same
+    step with the plain version (chip_smoke.py's LOGITS_REL_TOL)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+
+    import repro_torch.models.attention as attention
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.zoo import build_model, cache_tensors
+
+    H, Hkv = DENSE_GROUPS[arch_id]
+    cfg = dataclasses.replace(get_config(arch_id), n_layers=2, d_model=256,
+                              n_heads=H, n_kv_heads=Hkv, head_dim=128,
+                              d_ff=512, vocab=512)
+    assert attn_route(128, H // Hkv, cfg.dtype) == "tensor_core"
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    B, S, T = 4, 256, 100
+    caches = model.init_cache(B, S)
+    toks = torch.randint(0, cfg.vocab, (B, T), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(1))
+    _, pre = model.prefill(params, toks, torch.full((B,), T, device="cuda"))
+    for full, new in zip(cache_tensors(caches), cache_tensors(pre)):
+        full[:, :, :, :T] = new
+    lens = torch.tensor([T - 60, T - 1, T - 30, T], device="cuda")
+    step = (toks[:, -1:], (lens - 1)[:, None], lens.to(torch.int32))
+    saved = [c.clone() for c in cache_tensors(caches)]
+    before = decode_attn.launches_by_route["tensor_core"]
+    logits, _ = model.decode(params, caches, *step)
+    torch.cuda.synchronize()
+    assert decode_attn.launches_by_route["tensor_core"] == \
+        before + cfg.n_layers
+    for c, s in zip(cache_tensors(caches), saved):
+        c.copy_(s)
+    monkeypatch.setattr(attention, "decode_attn", decode_attn_ref)
+    plain, _ = model.decode(params, caches, *step)
+    logits, plain = logits.float(), plain.float()
+    assert torch.isfinite(logits).all() and logits.shape == (B, 1, cfg.vocab)
+    scale = plain.abs().max().item()
+    assert (logits - plain).abs().max().item() <= 5e-2 * scale
