@@ -73,21 +73,43 @@
    config cut to one layer; then runs repro_torch.bench.
    bench_serve_decode on the card, whose rows must equal the committed
    benchmarks/results/after/BENCH_serve_decode.json rows.
-7. Serves llama3.2-1b, rwkv6-1.6b, llama3.2-3b, codeqwen1.5-7b and
-   granite-34b at full width (random weights from a seed) through the
-   port's Engine, all at full depth but granite-34b, cut to 40 of its 88
-   layers (88 layers of bf16 weights take 88 GiB, more than the card):
-   12 requests over 8 slots each, so slots are reused, and checks that
-   the model's kernel ran once per layer in every decode step
-   (decode_attn, on the tensor cores, at head_dim 64 or 128 and GQA
-   groups 4, 3, 1 and 48) or in every decode step and every prefill
-   (wkv6: decode on the step route, each prefill on the route its length
-   gives).  Then holds one decode step's logits, kernel-backed, against
-   the same step with the plain version, and profiles a few decode steps
-   (the kernel's share of the device-busy time and of the step).
-8. Prints each phase's seconds, the kernels as one JSON line (launches:
-   the sums over the serving paths of steps 6 and 7, and the kernel
-   path), the card's name and power limit, and as its last line
+7. Serves llama3.2-1b, rwkv6-1.6b, llama3.2-3b, codeqwen1.5-7b,
+   granite-34b, zamba2-1.2b, llama4-maverick and deepseek-v3 at full
+   width (random weights from a seed) through the port's Engine, all at
+   full depth but granite-34b, cut to 40 of its 88 layers (88 layers of
+   bf16 weights take 88 GiB, more than the card), llama4-maverick, cut to
+   1 of 48 (one layer of 128 experts, 34.2 GiB), and deepseek-v3, cut to
+   its 3 dense layers and 1 MoE layer of 256 experts, with its MTP head
+   (28.8 GiB): 12 requests over 8 slots each, so slots are reused, and
+   checks that the model's kernel ran as its path says: decode_attn on
+   the tensor cores once per layer in every decode step (head_dim 64 or
+   128, GQA groups 4, 3, 1, 48 and 5), or once per application of
+   zamba2's shared attention block (6 a step); wkv6 in every decode step
+   and every prefill (decode on the step route, each prefill on the route
+   its length gives); and neither kernel on deepseek-v3's MLA path.  Then
+   holds one decode step's logits, kernel-backed, against the same step
+   with the plain version (for deepseek-v3: logits finite and shaped
+   right, and the MLA latent caches written at rows [0, length) of each
+   slot and zero past them), and profiles a few decode steps (the
+   kernel's share of the device-busy time and of the step).  zamba2's
+   batch-1 prefill of 1024 tokens is timed and profiled (launches per
+   token: its SSD scan is a loop over time), and deepseek-v3's MTP head
+   runs once.
+8. Runs musicgen-large and llava-next-mistral-7b (embeddings in, served
+   by no engine) at full size at model level (phase_embedded): a batch-8
+   prefill of 512 seeded N(0, 1) embeddings merged into an 8 x 2048
+   cache, 32 decode steps of seeded embeddings with decode_attn on the
+   tensor cores once per layer and step, one more step held against the
+   plain version.
+9. Holds the new families' code that runs no kernel of its own (MoE
+   routing, MLA, MTP, the Mamba2 scan, embedding inputs) card against
+   CPU (phase_card_cpu): zamba2, llama4-maverick, deepseek-v3,
+   musicgen-large and llava-next at serve_smoke_config size in float32,
+   a prefill and 3 chained decode steps, logits within 1e-4 and every
+   MoE routing's expert and kept choices equal.
+10. Prints each phase's seconds, the kernels as one JSON line (launches:
+   the sums over the serving paths of steps 6-8, and the kernel path),
+   the card's name and power limit, and as its last line
    {"ok": true, "device": {...}}.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -181,9 +203,27 @@ SERVE_DECODE_BENCH = os.path.join(ROOT, "benchmarks", "results", "after",
                                   "BENCH_serve_decode.json")
 # The served configs and the depth each is cut to (None: full depth):
 # granite-34b's 88 layers take 88 GiB of bf16 weights, more than the
-# card's 80 GB, so it is served at 40 (about 41 GiB)
+# card's 80 GB, so it is served at 40 (about 41 GiB); llama4-maverick at 1
+# of 48 (one layer of 128 experts: 18.4 B parameters with the embeddings,
+# 34.2 GiB; two would be 64.6 GiB); deepseek-v3 at 4 of 61 (its 3 dense
+# layers and 1 MoE layer of 256 experts, and the MTP block: 28.8 GiB)
 SERVED = (("llama3.2-1b", None), ("rwkv6-1.6b", None), ("llama3.2-3b", None),
-          ("codeqwen1.5-7b", None), ("granite-34b", 40))
+          ("codeqwen1.5-7b", None), ("granite-34b", 40),
+          ("zamba2-1.2b", None), ("llama4-maverick-400b-a17b", 1),
+          ("deepseek-v3-671b", 4))
+# zamba2's prefill profiled at the longest prompt the episodes admit
+PREFILL_PROFILE_T = 1024
+# The embeddings-input configs, at full size, at model level (the engine
+# feeds tokens): one batch-B prefill of EMBED_PREFILL_T embeddings, then
+# EMBED_DECODE_STEPS decode steps
+EMBEDDED = ("musicgen-large", "llava-next-mistral-7b")
+EMBED_PREFILL_T, EMBED_DECODE_STEPS = 512, 32
+# The configs of PR 20's families, card against CPU at serve_smoke_config
+# size in float32 (TF32 off): prefill and CARD_CPU_STEPS chained decode
+# steps, logits within CARD_CPU_TOL (rtol and atol)
+CARD_CPU = ("zamba2-1.2b", "llama4-maverick-400b-a17b", "deepseek-v3-671b",
+            "musicgen-large", "llava-next-mistral-7b")
+CARD_CPU_STEPS, CARD_CPU_S, CARD_CPU_TOL = 3, 16, 1e-4
 GOLDEN_CSV = os.path.join(ROOT, "tests", "golden_gemm_small_instructions.csv")
 TINY_FRONTIER = os.path.join(ROOT, "benchmarks", "results", "after",
                              "dse_frontier_tiny.json")
@@ -1000,21 +1040,26 @@ def phase_table1_kernels(card: str):
 
 
 def _serve_spec(cfg):
-    """(kernel op, module whose attribute names it, plain version, kernel
-    launches per layer and admitted prompt, a part of the names of the
-    op's device kernels) of the path of ``cfg``'s family: the dense
-    transformer decodes through decode_attn, rwkv6 (ssm) through wkv6."""
-    if cfg.family == "dense":
-        import repro_torch.models.attention as module
-        from repro_torch.kernels.decode_attn.ops import decode_attn as op
-        from repro_torch.kernels.decode_attn.ref import decode_attn_ref as ref
-        return op, module, ref, 0, "decode_"
+    """(kernel op or None, module whose attribute names it, plain version,
+    launches per decode step, launches per admitted prompt, a part of the
+    names of the op's device kernels) of the path of ``cfg``'s family:
+    GQA transformers (dense, MoE) decode through decode_attn once per
+    layer, the zamba2 hybrid once per application of its shared block,
+    rwkv6 (ssm) runs wkv6 once per layer in every step and prefill, and
+    MLA (deepseek-v3) runs no kernel: the reference has none for it."""
     if cfg.family == "ssm":
         import repro_torch.models.rwkv6 as module
         from repro_torch.kernels.wkv6.ops import wkv6 as op
         from repro_torch.kernels.wkv6.ref import wkv6_ref as ref
-        return op, module, ref, 1, "wkv6_"
-    raise ValueError(f"{cfg.name}: no serving path for family {cfg.family}")
+        return op, module, ref, cfg.n_layers, cfg.n_layers, "wkv6_"
+    if cfg.mla:
+        return None, None, None, 0, 0, None
+    import repro_torch.models.attention as module
+    from repro_torch.kernels.decode_attn.ops import decode_attn as op
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref as ref
+    per_step = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" \
+        else cfg.n_layers
+    return op, module, ref, per_step, 0, "decode_"
 
 
 def _zero_counts(*ops) -> None:
@@ -1038,8 +1083,8 @@ def _add_counts(total: dict, more: dict) -> None:
 
 def phase_serve(card: str, arch: str, n_layers=None):
     """``arch`` at full width, served through the Engine at full depth or
-    cut to ``n_layers``; its kernel runs once per layer in every decode
-    step and, with ``per_prompt``, in every prefill."""
+    cut to ``n_layers``; its kernel runs as ``_serve_spec`` says, and
+    neither kernel runs on the MLA path."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config
@@ -1054,18 +1099,20 @@ def phase_serve(card: str, arch: str, n_layers=None):
         depth = f"{n_layers} of {cfg.n_layers} layers (depth cut, widths " \
                 f"as published)"
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    op, module, ref, per_prompt, device_kernel = _serve_spec(cfg)
-    name = op.__name__
+    op, module, ref, per_step, per_prompt, device_kernel = _serve_spec(cfg)
+    name = op.__name__ if op is not None else "no kernel (MLA)"
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=model.device).manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    print(f"[serve] {cfg.name}: {depth}, d_model {cfg.d_model}, heads "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.hd}, "
+    print(f"[serve] {cfg.name} ({cfg.family}): {depth}, d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of "
+          f"{cfg.hd}{_family_line(cfg)}, "
           f"{'tied' if cfg.tie_embeddings else 'untied'} head, vocab "
-          f"{cfg.vocab}, {n_params / 1e9:.3f} B parameters ({cfg.dtype}), "
-          f"init {time.perf_counter() - t0:.1f} s")
+          f"{cfg.vocab}, {n_params / 1e9:.3f} B parameters "
+          f"({_param_gib(params):.2f} GiB, {cfg.dtype}), init "
+          f"{time.perf_counter() - t0:.1f} s")
     eng = Engine(model, params, batch=B, max_len=S_MAX)
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i,
@@ -1093,48 +1140,58 @@ def phase_serve(card: str, arch: str, n_layers=None):
         torch.cuda.synchronize()
         decode_s += time.perf_counter() - t0
         steps += 1
-    counts = _counts(op)
-    launches = op.launches
-    by_route = dict(op.launches_by_route)
+    counts = {**_counts(decode_attn), **_counts(wkv6)}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    want = cfg.n_layers * (steps + per_prompt * N_REQUESTS)
-    if launches != want:
-        raise AssertionError(f"{name} launched {launches} times, not "
-                             f"{want}, in {steps} decode steps and "
-                             f"{N_REQUESTS} prefills of {cfg.n_layers} "
-                             f"layers")
+    want = per_step * steps + per_prompt * N_REQUESTS
+    for other in (decode_attn, wkv6):
+        expect = want if other is op else 0
+        if other.launches != expect:
+            raise AssertionError(f"{other.__name__} launched "
+                                 f"{other.launches} times, not {expect}, in "
+                                 f"{steps} decode steps and {N_REQUESTS} "
+                                 f"prefills of {cfg.name}")
     for r in reqs:
         if not (r.done and len(r.out) == r.max_new
                 and all(0 <= t < cfg.vocab for t in r.out)):
             raise AssertionError(f"request {r.rid} ended wrongly: "
                                  f"{len(r.out)}/{r.max_new} tokens")
-    how = f"{cfg.n_layers} x {steps}" if not per_prompt else \
-        f"{cfg.n_layers} x ({steps} + {N_REQUESTS})"
-    if op is decode_attn:     # bf16, every D and G: the tensor-core route
+    how = f"{per_step} x {steps}" if not per_prompt else \
+        f"{per_step} x ({steps} + {N_REQUESTS})"
+    if op is None:
+        how = "decode_attn and wkv6 both 0"
+    elif op is decode_attn:     # bf16, every D and G: the tensor cores
         how += f", {ran_on(decode_attn, 'tensor_core', name)} route"
     else:     # decode steps on the step route, each prefill by its length
         from repro_torch.kernels.wkv6.kernel import route as wkv6_route
+        by_route = dict(wkv6.launches_by_route)
         hd = cfg.d_model // cfg.n_heads
         want_by_route = dict.fromkeys(by_route, 0)
-        want_by_route["step"] += cfg.n_layers * steps
+        want_by_route["step"] += per_step * steps
         for r in reqs:
             want_by_route[wkv6_route(1, len(r.prompt), cfg.n_heads,
-                                     hd)] += cfg.n_layers
+                                     hd)] += per_prompt
         if by_route != want_by_route:
             raise AssertionError(f"wkv6 launches by route {by_route}, not "
                                  f"{want_by_route}")
         how += f"; by route {by_route}"
     print(f"[serve] {N_REQUESTS} requests, {prompt_tokens} prompt tokens, "
-          f"{decoded} decoded tokens in {steps} decode steps; {name} "
-          f"launches {launches} = {how}")
+          f"{decoded} decoded tokens in {steps} decode steps; launches "
+          f"{name} {op.launches if op is not None else 0} = {how}")
     print(f"[serve] prefill {prefill_s * 1e3:.1f} ms total "
           f"({prompt_tokens / prefill_s:.0f} prompt tokens/s, batch-1 "
           f"prefills); decode {decode_s * 1e3:.1f} ms total, "
           f"{decode_s / steps * 1e3:.2f} ms/step, {decoded / decode_s:.1f} "
           f"tokens/s; peak memory {peak_gib:.2f} GiB [{card}]")
+    if cfg.family == "hybrid":
+        profile_prefill(model, params, card)
+    if cfg.mtp:
+        _check_mtp(model, params, card)
 
-    # One decode step with all slots busy: kernel against plain version.
+    # One decode step with all slots busy, on caches zeroed first: every
+    # row a step may read was written by admission or by the step.
+    for c in cache_tensors(eng.caches):
+        c.zero_()
     for r in [Request(rid=100 + i, prompt=rng.integers(
             0, cfg.vocab, size=int(rng.integers(64, 1025))),
                           max_new=PROFILE_STEPS + 2)
@@ -1147,30 +1204,314 @@ def phase_serve(card: str, arch: str, n_layers=None):
     lens = torch.from_numpy(eng.lengths + 1).to(dev)
     saved = [c.clone() for c in cache_tensors(eng.caches)]
     logits, _ = model.decode(params, eng.caches, toks, pos, lens)
-    for c, s in zip(cache_tensors(eng.caches), saved):
-        c.copy_(s)
-    setattr(module, name, ref)
-    try:
-        plain, _ = model.decode(params, eng.caches, toks, pos, lens)
-    finally:
-        setattr(module, name, op)
-    for c, s in zip(cache_tensors(eng.caches), saved):
-        c.copy_(s)
-    logits, plain = logits.float(), plain.float()
+    logits = logits.float()
     if not (torch.isfinite(logits).all() and logits.shape == (B, 1, cfg.vocab)):
         raise AssertionError(f"decode logits not finite or shaped "
                              f"{tuple(logits.shape)}")
+    if op is None:
+        _check_latent_rows(eng.caches, lens, card)
+    else:
+        for c, s in zip(cache_tensors(eng.caches), saved):
+            c.copy_(s)
+        setattr(module, name, ref)
+        try:
+            plain, _ = model.decode(params, eng.caches, toks, pos, lens)
+        finally:
+            setattr(module, name, op)
+        _held_logits(f"decode step, kernel vs plain {name}", logits,
+                     plain.float())
+    for c, s in zip(cache_tensors(eng.caches), saved):
+        c.copy_(s)
+    del saved
+    profile_steps(eng, card, device_kernel)
+    return counts
+
+
+def _family_line(cfg) -> str:
+    """What the config adds to a dense transformer, for the phase lines."""
+    if cfg.moe:
+        line = (f", {cfg.n_experts} experts of d_ff {cfg.moe_d_ff} top-"
+                f"{cfg.top_k} + {cfg.n_shared_experts} shared, capacity "
+                f"factor {cfg.moe_capacity_factor}")
+        if cfg.first_k_dense:
+            line += (f", {min(cfg.first_k_dense, cfg.n_layers)} dense "
+                     f"layers of d_ff {cfg.dense_d_ff}")
+        if cfg.mla:
+            line += (f", MLA latents {cfg.kv_lora_rank} + rope "
+                     f"{cfg.qk_rope_dim}")
+        return line + (", MTP head" if cfg.mtp else "")
+    if cfg.family == "hybrid":
+        return (f", Mamba2 state {cfg.ssm_state}, one shared attention "
+                f"block after every {cfg.attn_every}th layer "
+                f"({cfg.n_layers // cfg.attn_every} applications)")
+    return ""
+
+
+def _param_gib(params) -> float:
+    return sum(p.numel() * p.element_size()
+               for p in params.parameters()) / 2 ** 30
+
+
+def _held_logits(label: str, logits, plain) -> None:
+    """Kernel-backed logits against plain-backed ones, within
+    LOGITS_REL_TOL of the largest plain logit."""
     err = (logits - plain).abs().max().item()
     scale = plain.abs().max().item()
     agree = (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
-    print(f"[serve] decode step, kernel vs plain {name}: max_abs_err "
-          f"{err:.3e}, max |logit| {scale:.3f}, tol "
-          f"{LOGITS_REL_TOL * scale:.3e}, argmax agreement {agree:.3f}")
+    print(f"[serve] {label}: max_abs_err {err:.3e}, max |logit| "
+          f"{scale:.3f}, tol {LOGITS_REL_TOL * scale:.3e}, argmax agreement "
+          f"{agree:.3f}")
     if err > LOGITS_REL_TOL * scale:
-        raise AssertionError("kernel-backed decode logits disagree with the "
-                             "plain-backed ones")
-    profile_steps(eng, card, device_kernel)
+        raise AssertionError(f"{label}: kernel-backed logits disagree with "
+                             f"the plain-backed ones")
+
+
+def _check_latent_rows(caches, lens, card: str) -> None:
+    """MLA's latent caches after admission and one decode step on zeroed
+    caches: every row below a slot's length written (not all zero), every
+    row past it still zero."""
+    lens = lens.cpu()
+    for key, lat in sorted(caches.items()):           # (n, B, S, r)
+        written = lat.ne(0).any(-1).cpu()             # (n, B, S)
+        rows = torch.arange(lat.shape[2])
+        want = (rows[None, :] < lens[:, None]).expand_as(written)
+        if not torch.equal(written, want):
+            raise AssertionError(f"MLA {key} cache rows written "
+                                 f"{int(written.sum())}, not the "
+                                 f"{int(want.sum())} rows below the "
+                                 f"lengths")
+    print(f"[serve] MLA latent caches ({', '.join(sorted(caches))}): rows "
+          f"[0, length) of each slot written, every row past it zero "
+          f"(lengths {lens.tolist()}) [{card}]")
+
+
+def _check_mtp(model, params, card: str) -> None:
+    """The MTP head once at full width, on one prompt's hidden states."""
+    from repro_torch.models.transformer import transformer_apply
+
+    T = 64
+    toks = torch.randint(0, model.cfg.vocab, (1, T), device=model.device,
+                         generator=torch.Generator(device=model.device)
+                         .manual_seed(2))
+    pos = torch.arange(T, device=model.device)[None]
+    with torch.no_grad():
+        hidden, _ = transformer_apply(params, model.cfg, toks, pos)
+        logits = model.mtp_logits(params, hidden, toks)
+    if not (torch.isfinite(logits.float()).all()
+            and logits.shape == (1, T - 1, model.cfg.vocab)):
+        raise AssertionError(f"MTP logits not finite or shaped "
+                             f"{tuple(logits.shape)}")
+    print(f"[serve] MTP head on a {T}-token prompt: logits "
+          f"{tuple(logits.shape)}, finite [{card}]")
+
+
+def profile_prefill(model, params, card: str) -> None:
+    """One batch-1 prefill of PREFILL_PROFILE_T tokens: host seconds and
+    tokens/s, then under torch.profiler the device kernel launches per
+    prompt token (the zamba2 SSD scan runs one a step per layer)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    T = PREFILL_PROFILE_T
+    toks = torch.randint(0, model.cfg.vocab, (1, T), device=model.device,
+                         generator=torch.Generator(device=model.device)
+                         .manual_seed(1))
+    lens = torch.tensor([T], device=model.device)
+    model.prefill(params, toks, lens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.prefill(params, toks, lens)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # device activity only: the host-side events of ~40 launches a token
+    # make the trace several times larger
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model.prefill(params, toks, lens)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")
+               and getattr(e, "self_device_time_total", 0) > 0]
+    n_launch = sum(e.count for e in kernels)
+    busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    print(f"[serve] one batch-1 prefill of {T} tokens: host {host_s:.3f} s "
+          f"({T / host_s:.0f} tokens/s); under the profiler {n_launch} "
+          f"device kernel launches ({n_launch / T:.1f} per token), device "
+          f"busy {busy_s:.3f} s, idle share {1 - busy_s / host_s:.3f} of "
+          f"the unprofiled prefill (profiled and read in "
+          f"{time.perf_counter() - t0:.1f} s) [{card}]")
+
+
+def phase_embedded(card: str, arch: str) -> dict:
+    """An embeddings-input config (audio / vlm backbone) at full size, at
+    model level: a batch-B prefill of EMBED_PREFILL_T seeded N(0, 1)
+    embeddings merged into a B x S_MAX cache, EMBED_DECODE_STEPS decode
+    steps of seeded embeddings with decode_attn on the tensor cores once
+    per layer and step, then one more step held against the same step
+    with the plain version."""
+    import repro_torch.models.attention as attention
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.decode_attn.ops import decode_attn
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.models.zoo import build_model, cache_tensors
+
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    dev = model.device
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"[embed] {cfg.name} ({cfg.family}, {cfg.input_mode} in): "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.hd}, vocab {cfg.vocab}, "
+          f"{n_params / 1e9:.3f} B parameters ({_param_gib(params):.2f} "
+          f"GiB, {cfg.dtype}), init {time.perf_counter() - t0:.1f} s")
+    T, steps = EMBED_PREFILL_T, EMBED_DECODE_STEPS
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randn((B, T, cfg.d_model), generator=gen, device=dev)
+    step_in = torch.randn((steps + 1, B, 1, cfg.d_model), generator=gen,
+                          device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    caches = model.init_cache(B, S_MAX)
+    _zero_counts(decode_attn, wkv6)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, pre = model.prefill(params, prompt, torch.full((B,), T, device=dev))
+    for full, new in zip(cache_tensors(caches), cache_tensors(pre)):
+        full[:, :, :, :T] = new
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    del pre
+    decode_s = 0.0
+    for t in range(steps):
+        pos = torch.full((B, 1), T + t, device=dev)
+        lens = torch.full((B,), T + t + 1, dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        logits, caches = model.decode(params, caches, step_in[t], pos, lens)
+        torch.cuda.synchronize()
+        decode_s += time.perf_counter() - t0
+    counts = {**_counts(decode_attn), **_counts(wkv6)}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = cfg.n_layers * steps
+    if decode_attn.launches != want or wkv6.launches:
+        raise AssertionError(f"{cfg.name}: decode_attn launched "
+                             f"{decode_attn.launches} times (not {want}), "
+                             f"wkv6 {wkv6.launches}")
+    if not (torch.isfinite(logits.float()).all()
+            and logits.shape == (B, 1, cfg.vocab)):
+        raise AssertionError(f"decode logits not finite or shaped "
+                             f"{tuple(logits.shape)}")
+    route = ran_on(decode_attn, "tensor_core", cfg.name)
+    print(f"[embed] prefill of {B} x {T} embeddings {prefill_s * 1e3:.1f} ms "
+          f"({B * T / prefill_s:.0f} tokens/s); {steps} decode steps "
+          f"{decode_s / steps * 1e3:.2f} ms/step "
+          f"({B * steps / decode_s:.1f} tokens/s); decode_attn launches "
+          f"{want} = {cfg.n_layers} x {steps} on the {route} route; peak "
+          f"memory {peak_gib:.2f} GiB [{card}]")
+
+    # One more step, kernel against plain version.  Every layer writes
+    # its K/V at the step's position before it attends, so the plain
+    # step overwrites all that the kernel step wrote.
+    pos = torch.full((B, 1), T + steps, device=dev)
+    lens = torch.full((B,), T + steps + 1, dtype=torch.int32, device=dev)
+    logits, _ = model.decode(params, caches, step_in[steps], pos, lens)
+    with mock.patch.object(attention, "decode_attn", decode_attn_ref):
+        plain, _ = model.decode(params, caches, step_in[steps], pos, lens)
+    _held_logits(f"{cfg.name} decode step, kernel vs plain decode_attn",
+                 logits.float(), plain.float())
     return counts
+
+
+def _chained_logits(model, params, inputs, positions):
+    """Prefill inputs[0], merge its caches into a cache of S positions by
+    the engine's rule, then decode inputs[1:] at ``positions``: the list
+    of logits."""
+    from repro_torch.models.zoo import cache_tensors
+
+    first = inputs[0]
+    Bc, T = first.shape[0], first.shape[1]
+    logits, pre = model.prefill(params, first,
+                                torch.full((Bc,), T, device=first.device))
+    out = [logits]
+    caches = model.init_cache(Bc, CARD_CPU_S)
+    for full, new in zip(cache_tensors(caches), cache_tensors(pre)):
+        idx = [slice(None)] * new.ndim
+        seq = [ax for ax in range(2, new.ndim)
+               if new.shape[ax] != full.shape[ax]]
+        if seq:
+            idx[seq[0]] = slice(0, new.shape[seq[0]])
+        full[tuple(idx)] = new
+    for x, pos in zip(inputs[1:], positions):
+        logits, caches = model.decode(params, caches, x, pos, pos[:, 0] + 1)
+        out.append(logits)
+    return out
+
+
+def phase_card_cpu(card: str) -> None:
+    """The new families' code that runs no kernel of its own (MoE routing
+    and experts, MLA, MTP, the Mamba2 scan, embedding inputs), card
+    against CPU: each of CARD_CPU at serve_smoke_config size in float32,
+    with the CPU's parameters copied to the card, a prefill and
+    CARD_CPU_STEPS chained decode steps on both; logits within
+    CARD_CPU_TOL and every MoE routing's expert choices (idx) and kept
+    choices (keep) equal."""
+    import copy
+
+    import repro_torch.models.moe as moe
+    from repro_torch.configs.registry import serve_smoke_config
+    from repro_torch.models.zoo import build_model
+
+    route = moe.moe_route
+    for arch in CARD_CPU:
+        cfg = serve_smoke_config(arch)
+        assert cfg.dtype == torch.float32
+        rng = np.random.default_rng(0)
+        Bc, T = 2, 8
+        shapes = [(Bc, T)] + [(Bc, 1)] * CARD_CPU_STEPS
+        if cfg.input_mode == "tokens":
+            inputs = [torch.from_numpy(rng.integers(0, cfg.vocab, sh))
+                      for sh in shapes]
+        else:
+            inputs = [torch.from_numpy(rng.normal(size=(*sh, cfg.d_model))
+                                       .astype(np.float32)) for sh in shapes]
+        positions = [torch.tensor([[T + t], [T + 1 + t]])
+                     for t in range(CARD_CPU_STEPS)]
+        cpu_model = build_model(cfg, device="cpu")
+        cpu_params = cpu_model.init(torch.Generator().manual_seed(0))
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            model = cpu_model if dev == "cpu" else build_model(cfg)
+            params = cpu_params if dev == "cpu" else \
+                copy.deepcopy(cpu_params).to(model.device)
+            seen = []
+
+            def recording(router, xf, k, C):
+                out = route(router, xf, k, C)
+                seen.append((out[2].cpu(), out[3].cpu()))
+                return out
+
+            with mock.patch.object(moe, "moe_route", recording):
+                logits = _chained_logits(
+                    model, params, [x.to(model.device) for x in inputs],
+                    [p.to(model.device) for p in positions])
+            runs[dev] = ([lg.cpu() for lg in logits], seen)
+        (card_logits, card_routes), (cpu_logits, cpu_routes) = \
+            runs["cuda"], runs["cpu"]
+        err = 0.0
+        for got, want in zip(card_logits, cpu_logits):
+            torch.testing.assert_close(got, want, rtol=CARD_CPU_TOL,
+                                       atol=CARD_CPU_TOL)
+            err = max(err, (got - want).abs().max().item())
+        if len(card_routes) != len(cpu_routes) or any(
+                not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))
+                for a, b in zip(card_routes, cpu_routes)):
+            raise AssertionError(f"{arch}: MoE routing differs card to CPU")
+        dropped = sum(int((~keep).sum()) for _, keep in cpu_routes)
+        print(f"[card_cpu] {cfg.name}: prefill + {CARD_CPU_STEPS} decode "
+              f"steps, logits max |card - cpu| {err:.2e} (tol "
+              f"{CARD_CPU_TOL}); {len(cpu_routes)} MoE routings, idx and "
+              f"keep equal, {dropped} choices dropped [{card}]")
 
 
 def phase_serve_cgra(card: str) -> dict:
@@ -1320,10 +1661,10 @@ def phase_serve_cgra(card: str) -> dict:
     return launches
 
 
-def profile_steps(eng, card: str, kernel: str) -> None:
+def profile_steps(eng, card: str, kernel) -> None:
     """Device busy time and the costliest kernels of a few decode steps
     with all slots busy, from torch.profiler, and the rows whose names
-    hold ``kernel`` wherever they rank."""
+    hold ``kernel`` (None: no kernel on the path) wherever they rank."""
     from torch.profiler import ProfilerActivity, profile
 
     def dev_us(e):
@@ -1347,9 +1688,12 @@ def profile_steps(eng, card: str, kernel: str) -> None:
           f"{busy_ms:.3f} ms/step in {n_launch:.0f} kernel launches, idle "
           f"share {1 - busy_ms / wall_ms:.3f} [{card}]")
     ranked = sorted(kernels, key=dev_us, reverse=True)
-    for e in ranked[:8] + [e for e in ranked[8:] if kernel in e.key]:
+    for e in ranked[:8] + [e for e in ranked[8:]
+                           if kernel is not None and kernel in e.key]:
         print(f"[profile]   {dev_us(e) / 1e3 / PROFILE_STEPS:.4f} ms/step, "
               f"{e.count / PROFILE_STEPS:.0f} launches/step: {e.key[:100]}")
+    if kernel is None:
+        return
     own_ms = sum(dev_us(e) for e in kernels
                  if kernel in e.key) / 1e3 / PROFILE_STEPS
     print(f"[profile]   the {kernel}* kernels: {own_ms:.4f} ms/step, "
@@ -1932,6 +2276,13 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         lap(f"phase_serve {arch}")
+    for arch in EMBEDDED:
+        _add_counts(launches, phase_embedded(card, arch))
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap(f"phase_embedded {arch}")
+    phase_card_cpu(card)
+    lap("phase_card_cpu")
     for entry in entries:     # a routed kernel's entry: its route's count
         key = f"{entry['name']}:{entry.get('kernel_route')}"
         entry["launches"] = launches.get(key, launches[entry["name"]])

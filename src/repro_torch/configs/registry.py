@@ -1,10 +1,9 @@
 """Architecture registry: --arch <id> resolves here.
 
 Each config file defines CONFIG with the reference's values; the registry
-maps ids -> ModelConfig for all ten.  Families the port does not build yet
-(hybrid, MoE / MLA / MTP, embedding inputs) are refused by
-``repro_torch.models.zoo.build_model``, not here: their configs still feed
-the GEMM-site analyzer (``repro_torch.core.offload``) and serve plans.
+maps ids -> ModelConfig for all ten, which ``repro_torch.models.zoo.
+build_model`` builds, the GEMM-site analyzer (``repro_torch.core.offload``)
+analyzes and serve plans plan.
 """
 from __future__ import annotations
 

@@ -2,30 +2,33 @@
 
 The caller converts the pytree to numpy arrays first (for example with
 ``jax.tree.map(np.asarray, params)``); this module needs neither JAX nor
-``ml_dtypes``.  The JAX layout stacks every layer on a leading axis L,
-with weights stored [in, out] — the port's layout too:
+``ml_dtypes``.  The port's parameter modules carry the pytree's names,
+and the JAX layout stacks each group of layers on a leading axis, with
+weights stored [in, out] as the port stores them.  So the port's
+parameter ``dense_layers.3.attn.wq`` is the tree's
+``["dense_layers"]["attn"]["wq"][3]`` and ``shared.ffn.wo`` is
+``["shared"]["ffn"]["wo"]``, for every family:
 
-- dense: ``{embed, ln_f, head?, dense_layers/{ln1, ln2, attn/{wq, wk, wv,
-  wo}, ffn/{wi_gate, wi_up, wo}}}``;
-- rwkv6 (``family == "ssm"``): ``{embed, ln_f, head, layers/{ln1, ln2,
-  mix_r, mix_k, mix_v, mix_w, mix_c, wr, wk, wv, wo, w_a, w_b, w_base, u,
-  ck, cv}}``.
+- transformer: ``{embed, ln_f, head?, dense_layers?, moe_layers? (ffn:
+  router, wi_gate, wi_up, wo, shared?), mtp? {proj, block}}``, attention
+  GQA ``{wq, wk, wv, wo}`` or MLA ``{wq_a, wq_b, wkv_a, wkv_b, wo}``;
+- rwkv6 (``family == "ssm"``): ``{embed, ln_f, head, layers}``;
+- zamba2 (``family == "hybrid"``): ``{embed, ln_f, head, layers (Mamba2),
+  shared (one transformer block)}``.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, Union
+from typing import Any, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from .device import DeviceLike, resolve_device
 from .models.common import ModelConfig
 from .models.rwkv6 import RWKV6
 from .models.transformer import Transformer
-
-_RWKV6_LAYER = ("ln1", "ln2", "mix_r", "mix_k", "mix_v", "mix_w", "mix_c",
-               "wr", "wk", "wv", "wo", "w_a", "w_b", "w_base", "u", "ck",
-               "cv")
+from .models.zoo import Zamba2
 
 
 def _tensor(a: Any) -> torch.Tensor:
@@ -35,37 +38,43 @@ def _tensor(a: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(a))     # a writable copy
 
 
-def _put(dst: torch.nn.Parameter, src: Any) -> None:
-    t = _tensor(src)
-    if tuple(t.shape) != tuple(dst.shape):
-        raise ValueError(f"shape {tuple(t.shape)} != {tuple(dst.shape)}")
-    dst.data.copy_(t.to(dtype=dst.dtype))
+def _leaves(tree: Mapping[str, Any], prefix: str = "") -> Iterator[
+        Tuple[str, Any]]:
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _leaves(value, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", value
 
 
 def params_from_jax(np_tree: Mapping[str, Any], cfg: ModelConfig,
-                    device: DeviceLike = None) -> Union[Transformer, RWKV6]:
+                    device: DeviceLike = None) -> nn.Module:
     """The port's parameters of ``cfg``'s family holding the JAX model's:
-    an :class:`RWKV6` for ``family == "ssm"``, else a
-    :class:`Transformer`."""
+    an :class:`RWKV6` for ``family == "ssm"``, a :class:`Zamba2` for
+    ``"hybrid"``, else a :class:`Transformer`.  Raises ValueError naming
+    the parameter whose shape differs, or a tree leaf the port has no
+    parameter for."""
     device = resolve_device(device)
-    if cfg.family == "ssm":
-        params = RWKV6(cfg, None, device)
-        stacked = np_tree["layers"]
-        for i, layer in enumerate(params.layers):
-            for name in _RWKV6_LAYER:
-                _put(getattr(layer, name), stacked[name][i])
-    else:
-        params = Transformer(cfg, None, device)
-        stacked = np_tree["dense_layers"]
-        for i, layer in enumerate(params.layers):
-            _put(layer.ln1, stacked["ln1"][i])
-            _put(layer.ln2, stacked["ln2"][i])
-            for name in ("wq", "wk", "wv", "wo"):
-                _put(getattr(layer.attn, name), stacked["attn"][name][i])
-            for name in ("wi_gate", "wi_up", "wo"):
-                _put(getattr(layer.ffn, name), stacked["ffn"][name][i])
-    _put(params.embed, np_tree["embed"])
-    _put(params.ln_f, np_tree["ln_f"])
-    if params.head is not None:
-        _put(params.head, np_tree["head"])
+    cls = {"ssm": RWKV6, "hybrid": Zamba2}.get(cfg.family, Transformer)
+    params = cls(cfg, None, device)
+    used = set()
+    for name, dst in params.named_parameters():
+        parts = name.split(".")
+        keys = [k for k in parts if not k.isdigit()]
+        src = np_tree
+        for key in keys:
+            if not isinstance(src, Mapping) or key not in src:
+                raise ValueError(f"{name}: no {'.'.join(keys)} in the tree")
+            src = src[key]
+        used.add(".".join(keys))
+        for layer in (int(k) for k in parts if k.isdigit()):
+            src = np.asarray(src)[layer]
+        t = _tensor(src)
+        if tuple(t.shape) != tuple(dst.shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != "
+                             f"{tuple(dst.shape)}")
+        dst.data.copy_(t.to(dtype=dst.dtype))
+    unused = sorted(path for path, _ in _leaves(np_tree) if path not in used)
+    if unused:
+        raise ValueError(f"tree leaves without a parameter: {unused}")
     return params

@@ -7,6 +7,7 @@ SiLU and RoPE run in float32 and cast afterwards.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, replace
 from typing import Any, Optional, Sequence
 
@@ -166,13 +167,30 @@ def swiglu(x: torch.Tensor, wi_gate: torch.Tensor, wi_up: torch.Tensor,
     return h @ wo
 
 
+# Tensors of at least this many elements are drawn slice by slice along
+# their leading axis (an llama4-maverick expert tensor, 128 x 5120 x 8192,
+# holds 5.4e9: drawn whole, its float32 draw and scaled copy take 20 GiB
+# each beside the 10 GiB bf16 result).  Every smaller tensor is drawn
+# whole, as before.
+SLICED_INIT_NUMEL = 1 << 30
+
+
 def init_dense(gen: torch.Generator, shape: Sequence[int],
                scale: Optional[float] = None, dtype=torch.float32):
-    """Normal init on ``gen``'s device, drawn in float32 and then cast."""
+    """Normal init on ``gen``'s device, drawn in float32 and then cast; a
+    tensor of ``SLICED_INIT_NUMEL`` elements or more is drawn one leading
+    slice at a time straight into the result."""
+    shape = tuple(shape)
     scale = scale if scale is not None else (1.0 / (shape[0] ** 0.5))
-    w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return (w * scale).to(dtype)
+    if math.prod(shape) < SLICED_INIT_NUMEL:
+        w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=gen.device)
+        return (w * scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for part in out:
+        part.copy_(torch.randn(shape[1:], generator=gen, dtype=torch.float32,
+                               device=gen.device) * scale)
+    return out
 
 
 def weight(gen: Optional[torch.Generator], shape: Sequence[int], dtype,
@@ -185,6 +203,14 @@ def weight(gen: Optional[torch.Generator], shape: Sequence[int], dtype,
     else:
         w = init_dense(gen, shape, scale=scale, dtype=dtype)
     return nn.Parameter(w, requires_grad=False)
+
+
+def constant(shape: Sequence[int], value: float, dtype,
+             device=None) -> nn.Parameter:
+    """A frozen parameter filled with ``value`` (norm weights, biases,
+    the reference's fixed initial values)."""
+    return nn.Parameter(torch.full(tuple(shape), value, dtype=dtype,
+                                   device=device), requires_grad=False)
 
 
 def causal_mask(Tq: int, Tk: int, offset: int = 0, device=None):

@@ -16,12 +16,7 @@ import torch
 from torch import nn
 
 from ..kernels.wkv6.ops import wkv6
-from .common import ModelConfig, rms_norm, weight
-
-
-def _const(shape, value: float, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.full(shape, value, dtype=dtype, device=device),
-                        requires_grad=False)
+from .common import ModelConfig, constant, rms_norm, weight
 
 
 class RWKV6Block(nn.Module):
@@ -35,20 +30,20 @@ class RWKV6Block(nn.Module):
         device = gen.device if gen is not None else device
         d, f, H = cfg.d_model, cfg.d_ff, cfg.n_heads
         D, lora, dt = d // H, cfg.decay_lora_rank, cfg.dtype
-        self.ln1 = _const((d,), 1.0, torch.float32, device)
-        self.ln2 = _const((d,), 1.0, torch.float32, device)
+        self.ln1 = constant((d,), 1.0, torch.float32, device)
+        self.ln2 = constant((d,), 1.0, torch.float32, device)
         for name in ("mix_r", "mix_k", "mix_v", "mix_w"):
-            setattr(self, name, _const((d,), 0.5, dt, device))
+            setattr(self, name, constant((d,), 0.5, dt, device))
         for name in ("wr", "wk", "wv", "wo"):
             setattr(self, name, weight(gen, (d, d), dt, device))
         # data-dependent decay LoRA (the Finch contribution)
         self.w_a = weight(gen, (d, lora), dt, device, scale=0.02)
         self.w_b = weight(gen, (lora, d), dt, device, scale=0.02)
-        self.w_base = _const((d,), -6.0, torch.float32, device)
+        self.w_base = constant((d,), -6.0, torch.float32, device)
         self.u = weight(gen, (H, D), torch.float32, device, scale=0.5)
         self.ck = weight(gen, (d, f), dt, device)
         self.cv = weight(gen, (f, d), dt, device)
-        self.mix_c = _const((d,), 0.5, dt, device)
+        self.mix_c = constant((d,), 0.5, dt, device)
 
 
 def _token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
@@ -114,7 +109,7 @@ class RWKV6(nn.Module):
         d = cfg.d_model
         self.embed = weight(gen, (cfg.vocab, d), cfg.dtype, device,
                             scale=0.02)
-        self.ln_f = _const((d,), 1.0, torch.float32, device)
+        self.ln_f = constant((d,), 1.0, torch.float32, device)
         self.head = weight(gen, (d, cfg.vocab), cfg.dtype, device)
         self.layers = nn.ModuleList(RWKV6Block(cfg, gen, device)
                                     for _ in range(cfg.n_layers))

@@ -1,8 +1,9 @@
 """The port's examples, run as a user runs them (subprocesses on the CPU):
 the edge-deployment analyzer on a user-defined ADL file prints what the
 reference's analyzer prints, ``serve_decode_torch.py --cgra --traffic
---smoke`` writes the committed ``BENCH_serve_decode.json`` row, the
-quickstart runs, and the examples that simulate or serve refuse to run
+--smoke`` writes the committed ``BENCH_serve_decode.json`` row (and, for
+zamba2 and deepseek-v3, the reference example's rows), the quickstart
+runs, and the examples that simulate or serve refuse to run
 without a card unless ``--device cpu`` is given."""
 import importlib.util
 import json
@@ -83,6 +84,33 @@ def test_serve_decode_cgra_smoke_writes_the_committed_row(tmp_path):
     assert got == want[:1]
     plan = json.loads((out / "serve_plan.json").read_text())
     assert plan["model"] == "llama3.2-1b-serve-smoke"
+
+
+@pytest.mark.parametrize("arch_id", ["zamba2-1.2b", "deepseek-v3-671b"])
+def test_serve_decode_cgra_smoke_rows_equal_the_reference(arch_id,
+                                                          tmp_path):
+    """The hybrid and the MLA + MoE families through both examples with
+    the same flags: the same BENCH_serve_decode.json rows.  The port's
+    example names and extends its row as the committed file's rows are
+    (``serve_decode_<arch>``, plus the plan's sites and tiles); the
+    reference example names it after the config (``...-serve-smoke``)."""
+    flags = ("--cgra", "--traffic", "--smoke", "--arch", arch_id)
+    rows = {}
+    for script, extra in (("serve_decode_torch.py", ("--device", "cpu")),
+                          ("serve_decode.py", ())):
+        out = tmp_path / script
+        res = _run(script, *flags, *extra, "--out", str(out),
+                   cache=tmp_path / f"cache-{script}")
+        assert "serve_decode OK" in res.stdout
+        with open(out / "BENCH_serve_decode.json", encoding="utf-8") as f:
+            rows[script] = json.load(f)["rows"]
+    (got,), (want,) = rows["serve_decode_torch.py"], rows["serve_decode.py"]
+    assert want["name"] == f"serve_decode_{arch_id}-serve-smoke"
+    assert got["name"] == f"serve_decode_{arch_id}"
+    assert got["us"] == want["us"]
+    for extra in ("sites", "tiles"):
+        assert got["derived"].pop(extra) > 0
+    assert got["derived"] == want["derived"]
 
 
 def test_quickstart_runs_on_the_cpu(tmp_path):

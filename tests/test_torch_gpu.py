@@ -972,3 +972,78 @@ def test_dense_decode_step_kernel_matches_plain(arch_id, monkeypatch):
     assert torch.isfinite(logits).all() and logits.shape == (B, 1, cfg.vocab)
     scale = plain.abs().max().item()
     assert (logits - plain).abs().max().item() <= 5e-2 * scale
+
+
+# The families of PR 20: their code runs no kernel of its own (MoE
+# routing and experts, MLA, MTP, the Mamba2 scan, embedding inputs)
+NEW_FAMILIES = ("zamba2-1.2b", "llama4-maverick-400b-a17b",
+                "deepseek-v3-671b", "musicgen-large",
+                "llava-next-mistral-7b")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch_id", NEW_FAMILIES)
+def test_new_family_card_matches_cpu(arch_id, monkeypatch):
+    """serve_smoke_config size in float32, TF32 off, the CPU's parameters
+    copied to the card: prefill and 3 chained decode steps give logits
+    within 1e-4 on both, and every MoE routing the same expert choices
+    (idx) and kept choices (keep)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import repro_torch.models.moe as moe
+    from repro_torch.configs.registry import serve_smoke_config
+    from repro_torch.models.zoo import build_model, cache_tensors
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = serve_smoke_config(arch_id)
+    rng = np.random.default_rng(0)
+    B, T, S = 2, 8, 16
+    shapes = [(B, T)] + [(B, 1)] * 3
+    if cfg.input_mode == "tokens":
+        inputs = [torch.from_numpy(rng.integers(0, cfg.vocab, sh))
+                  for sh in shapes]
+    else:
+        inputs = [torch.from_numpy(rng.normal(size=(*sh, cfg.d_model))
+                                   .astype(np.float32)) for sh in shapes]
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_params = cpu_model.init(torch.Generator().manual_seed(0))
+    route = moe.moe_route
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = cpu_model if dev == "cpu" else build_model(cfg, device=dev)
+        params = cpu_params if dev == "cpu" else \
+            copy.deepcopy(cpu_params).to(dev)
+        seen = []
+
+        def recording(router, xf, k, C):
+            out = route(router, xf, k, C)
+            seen.append((out[2].cpu(), out[3].cpu()))
+            return out
+
+        monkeypatch.setattr(moe, "moe_route", recording)
+        x = [a.to(dev) for a in inputs]
+        logits, pre = model.prefill(params, x[0],
+                                    torch.full((B,), T, device=dev))
+        out = [logits.cpu()]
+        caches = model.init_cache(B, S)
+        for full, new in zip(cache_tensors(caches), cache_tensors(pre)):
+            if full.shape == new.shape:
+                full.copy_(new)
+            else:
+                ax = next(a for a in range(2, new.ndim)
+                          if new.shape[a] != full.shape[a])
+                full.narrow(ax, 0, T).copy_(new)
+        for t in range(3):
+            pos = torch.tensor([[T + t], [T + 1 + t]], device=dev)
+            logits, caches = model.decode(params, caches, x[1 + t], pos,
+                                          pos[:, 0] + 1)
+            out.append(logits.cpu())
+        runs[dev] = (out, seen)
+    for got, want in zip(runs["cuda"][0], runs["cpu"][0]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    card_routes, cpu_routes = runs["cuda"][1], runs["cpu"][1]
+    assert len(card_routes) == len(cpu_routes) == (
+        (1 + 3) * (cfg.n_layers - cfg.first_k_dense) if cfg.moe else 0)
+    for (idx, keep), (want_idx, want_keep) in zip(card_routes, cpu_routes):
+        assert torch.equal(idx, want_idx) and torch.equal(keep, want_keep)

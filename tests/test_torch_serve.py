@@ -1,7 +1,8 @@
 """Port's serving engine and traffic harness against the JAX reference:
 identical greedy tokens on fresh slots, a byte-identical traffic report,
-a recycled slot that decodes like a fresh one, and entry points that
-refuse to fall back to the CPU unasked."""
+a recycled slot that decodes like a fresh one (llama, zamba2 and
+deepseek-v3), admission placing every cache layout, and entry points
+that refuse to fall back to the CPU unasked."""
 import jax
 import numpy as np
 import pytest
@@ -17,7 +18,7 @@ from repro.serve.traffic import report_json as jax_report_json
 from repro.serve.traffic import run_traffic as jax_run_traffic
 from repro_torch.configs.registry import serve_smoke_config
 from repro_torch.convert import params_from_jax
-from repro_torch.models.zoo import build_model
+from repro_torch.models.zoo import build_model, cache_tensors
 from repro_torch.serve.engine import Engine, Request
 from repro_torch.serve.traffic import (FixedLatencyModel, TrafficConfig,
                                        report_bench_rows, report_json,
@@ -114,3 +115,58 @@ def test_engine_rejects_a_model_on_another_device(both):
     _, (tm, tp) = both
     with pytest.raises(ValueError, match="model is on cpu"):
         Engine(tm, tp, batch=1, max_len=8, device="meta")
+
+
+@pytest.mark.parametrize("arch_id", ["zamba2-1.2b", "deepseek-v3-671b"])
+def test_admission_places_latents_and_hybrid_state(arch_id):
+    """The engine's merge rule on the new cache layouts: MLA latents (n,
+    B, S, r) and the hybrid's shared-block K/V get the prompt's rows [0,
+    plen) of their slot; the hybrid's conv and SSM states, which have no
+    sequence axis, are overwritten whole.  Other slots stay as they
+    were."""
+    cfg = serve_smoke_config(arch_id)
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    eng = Engine(model, params, batch=3, max_len=32, device="cpu")
+    for c in cache_tensors(eng.caches):          # a used engine's leftovers
+        c.copy_(torch.randn(c.shape, generator=torch.Generator()
+                            .manual_seed(c.ndim)))
+    before = [c.clone() for c in cache_tensors(eng.caches)]
+    eng.slots[0] = Request(rid=-1, prompt=np.arange(3), max_new=1)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (9,))
+    assert eng.admit(Request(rid=0, prompt=prompt, max_new=2))
+    _, pre = model.prefill(params, torch.from_numpy(prompt[None]),
+                           torch.tensor([9]))
+    seq_axes = []
+    for full, new, old in zip(cache_tensors(eng.caches),
+                              cache_tensors(pre), before):
+        assert new.shape[1] == 1
+        seq = [ax for ax in range(2, new.ndim)
+               if new.shape[ax] != full.shape[ax]]
+        seq_axes.append(seq)
+        rows = [slice(None)] * new.ndim
+        rows[1] = 1
+        if seq:
+            rows[seq[0]] = slice(0, 9)
+        assert torch.equal(full[tuple(rows)], new[:, 0])
+        if seq:         # past the prompt, slot 1 keeps its old rows
+            rows[seq[0]] = slice(9, None)
+            assert torch.equal(full[tuple(rows)], old[tuple(rows)])
+        for other in (0, 2):
+            assert torch.equal(full[:, other], old[:, other])
+    want = [[2], [2]] if cfg.mla else [[], [], [3], [3]]
+    assert seq_axes == want
+
+
+@pytest.mark.parametrize("arch_id", ["zamba2-1.2b", "deepseek-v3-671b"])
+def test_new_family_recycled_slot_decodes_like_a_fresh_one(arch_id):
+    cfg = serve_smoke_config(arch_id)
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(5)
+    first, second = (rng.integers(0, cfg.vocab, size=(n,)) for n in (14, 10))
+    fresh = _serve(Engine(model, params, batch=1, max_len=32, device="cpu"),
+                   Request, [second], max_new=12)
+    eng = Engine(model, params, batch=1, max_len=32, device="cpu")
+    _serve(eng, Request, [first], max_new=12)    # leaves state and K/V
+    assert _serve(eng, Request, [second], max_new=12) == fresh
