@@ -11,7 +11,12 @@
    llama4-maverick and granite-34b, checked), the WKV6 recurrence at
    rwkv6-1.6b's decode and prefill shapes (prefill on the chunked route,
    with decays near 0 and near 1 too, the step kernel it replaced timed
-   on the same inputs; both routes timed around the route's threshold).
+   on the same inputs; both routes timed around the route's threshold),
+   and at rwkv6-1.6b's training forward (B 2, T 256, from zeros).
+   Then each at the shapes the fast kernels are not built for (ROADMAP
+   C10): decode_attn at head_dims 80, 96 and 256 (float32 and bf16, G 1
+   and 4, a row of length 0, S 600) and wkv6 at D 80 and 256 on both
+   routes (T 16 and 256), on their any-D kernels.
 3. The Table-I kernels (phase_table1_kernels): gemm_os at llama3.2-1b's
    ffn_in GEMM site (prefill in bf16 and float32, decode in bf16, the
    fused bias+silu and bias+gelu epilogues in both types, a ragged
@@ -19,8 +24,11 @@
    CONV as a batch of 32 edge images (bf16, float32) and as Listing 2
    writes it (one input channel), and qgemm_int8 at the ffn_in site, bit
    for bit; each held against its plain version and timed like the
-   others.  Then holds each row of the kernel path's entry point,
-   repro_torch.bench.bench_kernel_micro, on the row's own inputs against
+   others; then qgemm_int8 at K 140000 (all -128: K * 16384 wrapped to
+   int32, times the scales; and random), conv2d_os over 65536 images and
+   with 12 x 12 taps (the streaming route).  Then holds each row of the
+   kernel path's entry point, repro_torch.bench.bench_kernel_micro, on
+   the row's own inputs against
    the plain version, drives the entry point, and checks that each
    kernel launched exactly as often as its rows called it, on the routes
    the rule gives them.
@@ -107,8 +115,31 @@
    musicgen-large and llava-next at serve_smoke_config size in float32,
    a prefill and 3 chained decode steps, logits within 1e-4 and every
    MoE routing's expert and kept choices equal.
-10. Prints each phase's seconds, the kernels as one JSON line (launches:
-   the sums over the serving paths of steps 6-8, and the kernel path),
+10. The paper's Table I (phase_table1, benchmarks/table1_torch.py):
+   mapped on the host, verified by simulation on the card (the
+   simulator's launches counted; none of the five kernels), every row
+   equal to the host's run(verify=False).
+11. Trains llama3.2-1b (16 layers, B 4 x T 1024, 6 steps, then one
+   2-microbatch step whose loss is within 1% of the unbatched one) and
+   rwkv6-1.6b (24 layers, B 2 x T 256, 4 steps, wkv6 on the chunked
+   route once a layer and step, its backward recomputing through the
+   plain recurrence) at full size through repro_torch.train
+   (phase_train): losses finite and falling, ms a step, tokens/s, peak
+   GiB, the rwkv6 step's split between kernel and recomputing backward;
+   every wkv6 call of one rwkv6 training forward held against the plain
+   version (in float64) on the inputs the model made.  Then both at full
+   size in float32 (phase_train_grads): llama3.2-1b's 2-microbatch
+   gradients against the whole batch's, rwkv6's gradients with the wkv6
+   kernel against those with the plain recurrence in its place, 1e-4.
+12. One training step of each of the seven families at reduced() size,
+   card against CPU in float32 (phase_train_card_cpu): loss, grad_norm
+   and gradients within 1e-4, MoE choices equal; and the wkv6
+   autograd Function's gradients against autograd through the plain
+   recurrence (its plumbing: its backward is that same autograd).
+13. Prints each phase's seconds, the kernels as one JSON line (launches:
+   the sums over the serving paths of steps 6-8 and the kernel path; the
+   wkv6 entry at the training shape, "path": "train", the training
+   runs'),
    the card's name and power limit, and as its last line
    {"ok": true, "device": {...}}.
 
@@ -225,6 +256,35 @@ CARD_CPU = ("zamba2-1.2b", "llama4-maverick-400b-a17b", "deepseek-v3-671b",
             "musicgen-large", "llava-next-mistral-7b")
 CARD_CPU_STEPS, CARD_CPU_S, CARD_CPU_TOL = 3, 16, 1e-4
 GOLDEN_CSV = os.path.join(ROOT, "tests", "golden_gemm_small_instructions.csv")
+# phase_train: (config, batch, sequence length, steps, check a 2-microbatch
+# step) at full size in bf16, random weights from seed 0, one repeated
+# batch from the seeded synthetic token stream, remat on
+TRAIN_RUNS = (("llama3.2-1b", 4, 1024, 6, True),
+              ("rwkv6-1.6b", 2, 256, 4, False))
+# rwkv6-1.6b's training batch and length: its wkv6 shape (B, T, 32, 64)
+WKV6_TRAIN = TRAIN_RUNS[1][1:3]
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=100)
+TRAIN_DATA_SEED = 1234
+# the 2-microbatch step's loss against the 1-microbatch loss at the same
+# state (relative): bf16 sums over half the batch at a time
+TRAIN_MICROBATCH_REL = 1e-2
+# phase_train_grads: llama3.2-1b and rwkv6-1.6b at full size in float32
+# (TF32 off), loss (relative) and each gradient (of its tensor's largest
+# |g|): llama's 2-microbatch step against its 1-microbatch gradients,
+# rwkv6's step with wkv6 on the kernel against the same with wkv6_ref in
+# its place.  Only sum orders differ (1e-4 is the card-against-CPU bar,
+# where every sum's order differs)
+TRAIN_GRAD_REL = 1e-4
+# phase_train_card_cpu: every family at reduced() size in float32 (TF32
+# off), one step on card and CPU from the same params and batch: loss and
+# grad_norm within TRAIN_CARD_CPU_REL relative, each gradient within it of
+# its tensor's largest |g|
+TRAIN_CARD_CPU = ("llama3.2-1b", "rwkv6-1.6b", "zamba2-1.2b",
+                  "llama4-maverick-400b-a17b", "deepseek-v3-671b",
+                  "musicgen-large", "llava-next-mistral-7b")
+TRAIN_CARD_CPU_REL = 1e-4
+# the wkv6 autograd Function against autograd through wkv6_ref: (D, T)
+WKV6_GRAD_CASES = ((64, 16), (64, 128), (80, 16), (80, 128))
 TINY_FRONTIER = os.path.join(ROOT, "benchmarks", "results", "after",
                              "dse_frontier_tiny.json")
 
@@ -453,6 +513,7 @@ def phase_decode_attn_check(card: str):
                         library_ms=library_ms, prev_ms=prev_ms)
             del bufs
     _decode_attn_edge_checks(card)
+    _c10_decode_attn(card)
     return entry
 
 
@@ -487,10 +548,12 @@ def phase_wkv6_check(card: str):
     case on the route the rule gives it: the decode step (B=8, T=1) from a
     nonzero state on the step route, and batch-1 prefills from zeros on
     the chunked route, whole and in two halves with the carried state,
-    with decays as the model draws them and near 0 and near 1.  At
-    prefill the step kernel is held and timed on the same inputs.  Then
-    both routes at batch-1 prompts on either side of the threshold.
-    Returns the decode and the prefill entries of the kernels line."""
+    with decays as the model draws them and near 0 and near 1; and the
+    training forward's shape (WKV6_TRAIN, from zeros) on the chunked
+    route.  At prefill and training the step kernel is held and timed on
+    the same inputs.  Then both routes at batch-1 prompts on either side
+    of the threshold.  Returns the decode, the prefill and the training
+    entries of the kernels line (the training entry with path "train")."""
     from repro_torch.bench import sleep_cycles_per_ms, time_ms
     from repro_torch.kernels.wkv6.kernel import CHUNK_T, route
     from repro_torch.kernels.wkv6.ops import wkv6
@@ -502,6 +565,7 @@ def phase_wkv6_check(card: str):
     cases = [(B, 1, True, "mid")] + [(1, T, False, "mid")
                                      for T in WKV6_PREFILL_T]
     cases += [(1, WKV6_PREFILL_T[0], False, d) for d in ("near0", "near1")]
+    cases += [(*WKV6_TRAIN, False, "mid")]
     for dtype in (torch.bfloat16, torch.float32):
         for nb, T, with_state0, decays in cases:
             gen = torch.Generator(device="cuda").manual_seed(T + nb)
@@ -525,7 +589,10 @@ def phase_wkv6_check(card: str):
             want_kind = route(nb, T, H, D)
             got = wkv6(*bufs[0])
             torch.cuda.synchronize()
-            label = f"{'decode' if T == 1 else 'prefill'}, decays {lo}-{hi}"
+            train = (nb, T) == WKV6_TRAIN
+            what = "decode" if T == 1 else \
+                "training forward" if train else "prefill"
+            label = f"{what}, decays {lo}-{hi}"
             kind = ran_on(wkv6, want_kind, f"wkv6 {dtype} B={nb} T={T} "
                                            f"{decays}")
             # Near 1 the plain version's own float32 rounding reaches the
@@ -594,15 +661,18 @@ def phase_wkv6_check(card: str):
                   f"{bound_ms:.5f} ms ({bound_by}), "
                   f"{100 * bound_ms / ms:.1f}% of bound [{card}]")
             if dtype == torch.bfloat16 and decays == "mid" and \
-                    T in (1, WKV6_PREFILL_T[0]):
+                    (T in (1, WKV6_PREFILL_T[0]) or train):
                 entry = dict(
                     name="wkv6", route="cuda", kernel_route=kind,
                     source="src/repro_torch/csrc/wkv6.cu",
                     replaces="src/repro/kernels/wkv6/kernel.py:53",
                     shape=f"B={nb} T={T} H={H} D={D} bf16, " +
-                    ("decode step" if T == 1 else "batch-1 prefill"),
+                    ("decode step" if T == 1 else "training forward, "
+                     "zero state" if train else "batch-1 prefill"),
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                if train:
+                    entry["path"] = "train"
                 if prev_ms is not None:
                     entry["prev_ms"] = prev_ms
                 entries.append(entry)
@@ -632,6 +702,7 @@ def phase_wkv6_check(card: str):
         print(f"[wkv6] bf16 B=1 T={T}: the rule gives the "
               f"{route(1, T, H, D)} route; step {times['step']:.5f} ms, "
               f"chunked {times['chunked']:.5f} ms [{card}]")
+    _c10_wkv6(card)
     return entries
 
 
@@ -695,9 +766,9 @@ def _simt_conv(x, w):
     KH, KW, _, Cout = w.shape
     out = torch.empty((N, H - KH + 1, W - KW + 1, Cout), dtype=x.dtype,
                       device=x.device)
-    err = _entries()[0](x.data_ptr(), w.data_ptr(), out.data_ptr(), N, H, W,
-                        Cin, Cout, KH, KW, 1, 1,
-                        torch.cuda.current_stream().cuda_stream)
+    err = _entries()["simt"](x.data_ptr(), w.data_ptr(), out.data_ptr(), N,
+                             H, W, Cin, Cout, KH, KW, 1, 1,
+                             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"SIMT conv2d_os launch failed: CUDA error {err}")
     return out
@@ -720,6 +791,152 @@ def _simt_qgemm(a, b, sa, sb):
 # The layouts of torch._int_mm's b, (K, N) int8, that the yardstick tries.
 INT_MM_LAYOUTS = {"row-major (K, N)": lambda b: b,
                   "column-major (K, N)": lambda b: b.t().contiguous().t()}
+
+
+# ---- shapes the fast kernels are not built for (ROADMAP C10): each on
+# its route, held against its plain version with the tolerances above,
+# its route and ms printed.  These launches are checks, not a main path.
+C10_ATTN_D = (80, 96, 256)
+C10_WKV6_D = (80, 256)
+C10_WKV6_T = {"step": 16, "chunked": 256}
+C10_QGEMM = (8, 140000, 16)
+C10_CONV = (("N 65536 (grid.z slices)", (65536, 4, 4, 8), (3, 3, 8, 16)),
+            ("taps past shared memory", (2, 40, 40, 13), (12, 12, 13, 32)))
+
+
+def _c10_decode_attn(card: str) -> None:
+    """decode_attn at head_dims outside the vector kernels' set, float32
+    and bf16, G 1 and 4, a row of length 0, S 600: the SIMT route's any-D
+    kernel."""
+    from repro_torch.bench import sleep_cycles_per_ms, time_ms
+    from repro_torch.kernels.decode_attn.kernel import route
+    from repro_torch.kernels.decode_attn.ops import decode_attn
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+
+    cyc = sleep_cycles_per_ms()
+    gen = torch.Generator(device="cuda").manual_seed(80)
+    nb, hkv, S = 4, 2, 600
+    lens = torch.tensor([0, 1, 333, S], dtype=torch.int32, device="cuda")
+    _zero_counts(decode_attn)
+    for d in C10_ATTN_D:
+        for dtype in (torch.float32, torch.bfloat16):
+            for g in (1, 4):
+                q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                           .to(dtype) for shape in
+                           ((nb, hkv * g, d), (nb, hkv, S, d),
+                            (nb, hkv, S, d)))
+                tol = KERNEL_TOL[dtype]
+                err = _held(f"decode_attn D={d} G={g} {dtype}",
+                            decode_attn(q, k, v, lens),
+                            decode_attn_ref(q, k, v, lens), (tol, tol))
+                ms, _ = time_ms([lambda: decode_attn(q, k, v, lens)], 20,
+                                cyc)
+                kind = ran_on(decode_attn, route(d, g, dtype),
+                              f"decode_attn D={d} G={g}")
+                print(f"[c10] decode_attn D={d} G={g} {str(dtype)[6:]} "
+                      f"B={nb} Hkv={hkv} S={S} lengths {lens.tolist()} on "
+                      f"the {kind} route (any-D kernel): max_abs_err "
+                      f"{err:.3e} (tol {tol}), {ms:.5f} ms [{card}]")
+
+
+def _c10_wkv6(card: str) -> None:
+    """wkv6 at head sizes outside the fast kernels' set on both routes,
+    from a nonzero state0, float32 and bf16."""
+    from repro_torch.bench import sleep_cycles_per_ms, time_ms
+    from repro_torch.kernels.wkv6.kernel import route
+    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+
+    cyc = sleep_cycles_per_ms()
+    gen = torch.Generator(device="cuda").manual_seed(81)
+    nb, nh = 2, 4
+    _zero_counts(wkv6)
+    for d in C10_WKV6_D:
+        for want_route, T in C10_WKV6_T.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                shape = (nb, T, nh, d)
+                r, k = (0.5 * torch.randn(shape, generator=gen,
+                                          device="cuda") for _ in range(2))
+                v = torch.randn(shape, generator=gen, device="cuda")
+                w = 0.9 + 0.099 * torch.rand(shape, generator=gen,
+                                             device="cuda")
+                r, k, v, w = (a.to(dtype) for a in (r, k, v, w))
+                u = 0.3 * torch.randn((nh, d), generator=gen, device="cuda")
+                s0 = torch.randn((nb, nh, d, d), generator=gen,
+                                 device="cuda")
+                got = wkv6(r, k, v, w, u, s0)
+                want = wkv6_ref(r, k, v, w, u, s0)
+                err = _held(f"wkv6 D={d} T={T} {dtype}", got[0], want[0],
+                            WKV6_TOL[dtype])
+                _held(f"wkv6 D={d} T={T} {dtype} state", got[1], want[1],
+                      (WKV6_STATE_TOL, WKV6_STATE_TOL))
+                ms, _ = time_ms([lambda: wkv6(r, k, v, w, u, s0)], 10, cyc)
+                kind = ran_on(wkv6, route(nb, T, nh, d),
+                              f"wkv6 D={d} T={T}")
+                if kind != want_route:
+                    raise AssertionError(f"wkv6 T={T} ran on {kind}")
+                print(f"[c10] wkv6 D={d} B={nb} T={T} H={nh} "
+                      f"{str(dtype)[6:]} on the {kind} route (any-D "
+                      f"kernel): max_abs_err {err:.3e}, {ms:.5f} ms "
+                      f"[{card}]")
+
+
+def _c10_table1(card: str) -> None:
+    """qgemm_int8 past K_MAX (the SIMT route's wrapping instantiation): all
+    -128 must give K * 16384 wrapped to int32 times the scales, and random
+    int8 inputs the plain version's words; conv2d_os over 65536 images
+    (launched in grid.z slices) and with taps whose SIMT block would not
+    fit in shared memory (the streaming route), float32 and bf16."""
+    from repro_torch.bench import sleep_cycles_per_ms, time_ms
+    from repro_torch.kernels.conv2d_os.kernel import route as conv_route
+    from repro_torch.kernels.conv2d_os.ops import conv2d_os
+    from repro_torch.kernels.conv2d_os.ref import conv2d_ref
+    from repro_torch.kernels.qgemm_int8.kernel import route as qgemm_route
+    from repro_torch.kernels.qgemm_int8.ops import qgemm_int8
+    from repro_torch.kernels.qgemm_int8.ref import qgemm_ref
+
+    cyc = sleep_cycles_per_ms()
+    gen = torch.Generator(device="cuda").manual_seed(82)
+    m, kk, n = C10_QGEMM
+    sa = torch.linspace(0.5, 2.0, m, device="cuda")
+    sb = torch.linspace(0.25, 1.0, n, device="cuda")
+    _zero_counts(qgemm_int8, conv2d_os)
+    for label in ("all -128", "random"):
+        if label == "random":
+            a = torch.randint(-128, 128, (m, kk), generator=gen,
+                              device="cuda", dtype=torch.int8)
+            b = torch.randint(-128, 128, (kk, n), generator=gen,
+                              device="cuda", dtype=torch.int8)
+        else:
+            a = torch.full((m, kk), -128, dtype=torch.int8, device="cuda")
+            b = torch.full((kk, n), -128, dtype=torch.int8, device="cuda")
+        got = qgemm_int8(a, b, sa, sb)
+        _held(f"qgemm_int8 K={kk} {label}", got, qgemm_ref(a, b, sa, sb),
+              None)
+        if label == "all -128":
+            _held(f"qgemm_int8 K={kk} {label} against -2001207296 * scales",
+                  got, (torch.full((m, n), -2001207296.0, device="cuda")
+                        * sa[:, None]) * sb[None, :], None)
+        ms, _ = time_ms([lambda: qgemm_int8(a, b, sa, sb)], 20, cyc)
+        kind = ran_on(qgemm_int8, qgemm_route(m, kk, n),
+                      f"qgemm_int8 K={kk}")
+        print(f"[c10] qgemm_int8 M={m} K={kk} N={n} {label} on the {kind} "
+              f"route (K in wrapping int32 chunks): bit-equal to the plain "
+              f"version, {ms:.5f} ms [{card}]")
+    for label, xs, ws in C10_CONV:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(xs, generator=gen, device="cuda").to(dtype)
+            w = (torch.randn(ws, generator=gen, device="cuda")
+                 / math.sqrt(ws[0] * ws[1] * ws[2])).to(dtype)
+            err = _held(f"conv2d_os {label} {dtype}", conv2d_os(x, w),
+                        conv2d_ref(x, w), TABLE1_TOL[dtype])
+            ms, _ = time_ms([lambda: conv2d_os(x, w)], 5, cyc)
+            kind = ran_on(conv2d_os, conv_route(xs[3], ws[3], ws[0], ws[1],
+                                                dtype).kind,
+                          f"conv2d_os {label}")
+            print(f"[c10] conv2d_os {label}: x {xs} w {ws} "
+                  f"{str(dtype)[6:]} on the {kind} route: max_abs_err "
+                  f"{err:.3e}, {ms:.5f} ms [{card}]")
 
 
 def phase_table1_kernels(card: str):
@@ -1010,6 +1227,7 @@ def phase_table1_kernels(card: str):
     torch.cuda.synchronize()
     routed = {"gemm_os": gemm_os, "conv2d_os": conv2d_os,
               "qgemm_int8": qgemm_int8, "decode_attn": decode_attn}
+    _c10_table1(card)
     _zero_counts(*OPS.values())
     rows = bench_kernel_micro()
     torch.cuda.synchronize()
@@ -2238,6 +2456,509 @@ def phase_cgra_tools(card: str, cks: dict) -> None:
     print("[tools] the CGRA tools launched none of the five kernels")
 
 
+def phase_table1(card: str) -> None:
+    """The paper's Table I (benchmarks/table1_torch.py): mapped at full
+    size on the host, each small-dims variant verified by simulation on
+    the card, under the profiler (CUDA activity only: the simulator's
+    device launches); no kernel of the five may launch.  Every row's
+    nodes, II, MII, util and speedup must equal ``run(verify=False)`` on
+    the host, which the CPU tests hold to the reference's
+    ``table1.run()``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.bench import OPS
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    from benchmarks import table1_torch
+
+    _zero_counts(*OPS.values())
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        results = table1_torch.run(verify=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")
+               and getattr(e, "self_device_time_total", 0) > 0]
+    n_launch = sum(e.count for e in kernels)
+    busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    launched = {name: op.launches for name, op in OPS.items()}
+    if any(launched.values()):
+        raise AssertionError(f"Table I launched kernels: {launched}")
+    table1_torch.print_table(results)
+    host = table1_torch.run(verify=False)
+    for name, c in results.items():
+        h = host[name]
+        if c is None or h is None:
+            raise AssertionError(f"Table I: {name} did not map")
+        got = (c.nodes, c.II, c.mii, c.utilization, c.speedup)
+        want = (h.nodes, h.II, h.mii, h.utilization, h.speedup)
+        if got != want:
+            raise AssertionError(f"Table I {name}: card run {got}, host "
+                                 f"{want}")
+    print(f"[table1] run(verify=True) on the card: {seconds:.1f} s, the "
+          f"simulator's {n_launch} device kernel launches (busy "
+          f"{busy_s:.3f} s), the five kernels' launches {launched}; every "
+          f"row's nodes / II / MII / util / speedup = run(verify=False) on "
+          f"the host [{card}]")
+    for r in table1_torch.rows_of(results):
+        print(f"[table1] {json.dumps(r)}")
+
+
+def _train_batch(cfg, nb: int, T: int, device) -> dict:
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    src = TokenSource(DataConfig(seq_len=T, global_batch=nb,
+                                 vocab=cfg.vocab, seed=TRAIN_DATA_SEED))
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in src.batch_at(0).items()}
+
+
+def _grads_held(label: str, got: dict, want: dict, rel: float) -> float:
+    """Each gradient of ``got`` within ``rel`` of its ``want`` tensor's
+    largest |g|, by name; returns the worst |got - want| / max|want|."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"{label}: gradients of other parameters")
+    worst = 0.0
+    for name, w in want.items():
+        scale = w.abs().max().item()
+        err = (got[name].float() - w.float()).abs().max().item()
+        if err > rel * scale:
+            raise AssertionError(f"{label}: gradient {name} differs by {err}"
+                                 f" > {rel} x {scale}")
+        worst = max(worst, err / scale if scale else 0.0)
+    return worst
+
+
+def _param_grads(params) -> dict:
+    """Every parameter's ``.grad`` by name (zeros where the loss did not
+    reach it, as the train step fills them)."""
+    return {n: torch.zeros_like(p) if p.grad is None else p.grad
+            for n, p in params.named_parameters()}
+
+
+def _train_wkv6_held(model, state, batch, card: str) -> None:
+    """One training forward at the trained state, with every layer's wkv6
+    call recorded (its r, k, v, w, u as the model made them, from a zero
+    state): each output and end state held against wkv6_ref in float64 on
+    the same inputs, allowed one bf16 rounding (WKV6_TOL's rtol) and, as
+    atol, the float32 plain version's own largest error against float64
+    on that call (at least WKV6_TOL's and WKV6_STATE_TOL's atol).  The
+    model's decays lie near 1 (0.996-1), where outputs of order 1e-3 are
+    sums of terms of order 1e3: float32 sums carry absolute errors of
+    order 1e-3 there, the plain version's as much as the kernel's, so the
+    exact recurrence is the yardstick, as for the near-1 prefill case.
+    These launches are a check, not the training path's."""
+    import repro_torch.models.rwkv6 as rwkv6_mod
+    from repro_torch.kernels.wkv6.kernel import route
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+    from repro_torch.train.step import make_loss_fn
+
+    kernel = rwkv6_mod.wkv6
+    calls = []
+
+    def recording(*args):
+        out = kernel(*args)
+        calls.append((args, out))
+        return out
+
+    before = dict(kernel.launches_by_route)
+    with torch.no_grad(), mock.patch.object(rwkv6_mod, "wkv6", recording):
+        make_loss_fn(model)(state.params, batch)
+    torch.cuda.synchronize()
+    ran = {r: n - before[r] for r, n in kernel.launches_by_route.items()}
+    r0 = calls[0][0][0]
+    want_route = route(*r0.shape)
+    if len(calls) != model.cfg.n_layers or \
+            ran[want_route] != model.cfg.n_layers:
+        raise AssertionError(f"training forward: {len(calls)} wkv6 calls, "
+                             f"launches {ran}")
+    rtol, atol = WKV6_TOL[r0.dtype]
+    worst = {"out": 0.0, "state": 0.0, "plain out": 0.0, "plain state": 0.0}
+    w_min, w_max = 1.0, 0.0
+    for i, (args, (out, st)) in enumerate(calls):
+        with torch.no_grad():
+            exact = wkv6_ref(*(a.double() for a in args[:5]))
+            plain = wkv6_ref(*(a.float() for a in args[:4]), args[4])
+        plain_err = [(p.double() - e).abs().max().item()
+                     for p, e in zip(plain, exact)]
+        got = [_held(f"training wkv6 layer {i} {part}", g, e.to(g.dtype),
+                     (r, max(a, pe)))
+               for part, g, e, r, a, pe in zip(
+                   ("output", "state"), (out, st), exact,
+                   (rtol, WKV6_STATE_TOL), (atol, WKV6_STATE_TOL),
+                   plain_err)]
+        for key, v in zip(("out", "state", "plain out", "plain state"),
+                          got + plain_err):
+            worst[key] = max(worst[key], v)
+        w_min = min(w_min, args[3].float().min().item())
+        w_max = max(w_max, args[3].float().max().item())
+    print(f"[train] {model.cfg.name}: one training forward's {len(calls)} "
+          f"wkv6 calls {tuple(r0.shape)} {str(r0.dtype)[6:]} (decays "
+          f"{w_min:.4f}-{w_max:.4f}) on the {want_route} route, each held "
+          f"against wkv6_ref in float64 on the inputs the model made: "
+          f"max_abs_err {worst['out']:.3e} (the float32 plain version's "
+          f"{worst['plain out']:.3e}; tol rtol {rtol:.2e}, atol the larger "
+          f"of {atol:.0e} and the plain version's), state "
+          f"{worst['state']:.3e} (plain {worst['plain state']:.3e}) "
+          f"[{card}]")
+
+
+def _train_split(model, state, batch, card: str) -> None:
+    """Where an rwkv6 training step goes, on the host clock (each part
+    ends in a synchronize): the forward (loss), the backward and, inside
+    it, the wkv6 Function's recomputing backward (the plain recurrence
+    under autograd, timed per call); the forward's wkv6 kernels' device
+    time from torch.profiler over one forward (CUDA activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.wkv6 import ops as wkv6_ops
+    from repro_torch.train.step import make_loss_fn
+
+    loss_fn = make_loss_fn(model)
+    plain_bwd = wkv6_ops._WKV6.backward
+    spent = []
+
+    def timed_backward(ctx, *grads):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain_bwd(ctx, *grads)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    for p in state.params.parameters():
+        p.grad = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _m = loss_fn(state.params, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with mock.patch.object(wkv6_ops._WKV6, "backward",
+                           staticmethod(timed_backward)):
+        loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    with torch.no_grad(), \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        loss_fn(state.params, batch)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if str(e.device_type).endswith("CUDA")]
+    kernel_ms = sum(e.self_device_time_total for e in ev
+                    if "wkv6" in e.key) / 1e3
+    busy_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    for p in state.params.parameters():
+        p.grad = None
+    print(f"[train] {model.cfg.name} step split: forward "
+          f"{1e3 * (t1 - t0):.1f} ms (device busy {busy_ms:.1f} ms, of it "
+          f"the wkv6 chunked kernels {kernel_ms:.2f} ms in "
+          f"{model.cfg.n_layers} launches), backward "
+          f"{1e3 * (t2 - t1):.1f} ms, of it the wkv6 Function's "
+          f"recomputing backward {1e3 * sum(spent):.1f} ms in {len(spent)} "
+          f"calls [{card}]")
+
+
+def phase_train(card: str) -> dict:
+    """Trains each of TRAIN_RUNS at full size on the card through
+    repro_torch.train (random bf16 weights from seed 0, one repeated
+    batch from the seeded token stream): every loss finite and the last
+    below the first (the reference's own bar), ms a step, tokens/s, peak
+    GiB, the losses and grad_norm printed.  llama3.2-1b then takes one
+    2-microbatch step from its state, whose loss must be within
+    TRAIN_MICROBATCH_REL of the 1-microbatch loss there.  rwkv6-1.6b's
+    forward must run wkv6 on the chunked route once a layer and step, and
+    the Function's backward must give the recurrence a gradient (u);
+    transformer training reaches no kernel.  Then rwkv6's step is split
+    (``_train_split``): the wkv6 kernels against the recomputing
+    backward.  Returns the launches of the training runs."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.decode_attn.ops import decode_attn
+    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train.step import (init_train_state, make_loss_fn,
+                                        make_train_step)
+
+    launches: dict = {}
+    for arch, nb, T, n_steps, microbatch in TRAIN_RUNS:
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        t0 = time.perf_counter()
+        state = init_train_state(
+            model, torch.Generator(device="cuda").manual_seed(0))
+        n_params = sum(p.numel() for p in state.params.parameters())
+        batch = _train_batch(cfg, nb, T, model.device)
+        step = make_train_step(model, optim.OptConfig(**TRAIN_OPT))
+        torch.cuda.synchronize()
+        print(f"[train] {cfg.name}: {cfg.n_layers} layers, d "
+              f"{cfg.d_model}, vocab {cfg.vocab}{_family_line(cfg)}, "
+              f"{str(cfg.dtype)[6:]}, {n_params / 1e9:.3f} B "
+              f"parameters, set up in {time.perf_counter() - t0:.1f} s; "
+              f"B={nb} T={T}, {n_steps} steps of one batch, "
+              f"OptConfig({TRAIN_OPT}), remat on [{card}]")
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(decode_attn, wkv6)
+        losses, norms, times = [], [], []
+        for _ in range(n_steps):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts = {**_counts(decode_attn), **_counts(wkv6)}
+        _add_counts(launches, counts)
+        if not all(math.isfinite(x) for x in losses + norms):
+            raise AssertionError(f"{arch}: a loss or norm is not finite: "
+                                 f"{losses} {norms}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{arch}: loss {losses[0]} -> "
+                                 f"{losses[-1]} did not fall")
+        if cfg.family == "ssm":
+            want = cfg.n_layers * n_steps
+            if wkv6.launches_by_route["chunked"] != want or \
+                    wkv6.launches != want or decode_attn.launches:
+                raise AssertionError(f"{arch}: launches {counts}, want "
+                                     f"wkv6 {want} on chunked, no "
+                                     f"decode_attn")
+            u_grad = state.params.layers[0].u.grad
+            if u_grad is None or not bool(u_grad.abs().max() > 0):
+                raise AssertionError(f"{arch}: no gradient through wkv6")
+        elif decode_attn.launches or wkv6.launches:
+            raise AssertionError(f"{arch}: training launched {counts}")
+        steady = times[1:]
+        ms = 1e3 * sum(steady) / len(steady)
+        print(f"[train] {arch}: losses {[round(x, 4) for x in losses]}, "
+              f"grad_norm {[round(x, 4) for x in norms]}; step "
+              f"{1e3 * times[0]:.1f} ms first, {ms:.1f} ms after "
+              f"({nb * T / ms * 1e3:.0f} tokens/s); peak "
+              f"{peak:.2f} GiB allocated; launches {counts} [{card}]")
+        if microbatch:
+            with torch.no_grad():
+                one, _ = make_loss_fn(model)(state.params, batch)
+            one = float(one)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met2 = make_train_step(
+                model, optim.OptConfig(**TRAIN_OPT), 2)(state, batch)
+            two = float(met2["loss"])
+            rel = abs(two - one) / abs(one)
+            print(f"[train] {arch}: 2 microbatches from the state after "
+                  f"step {n_steps}: loss {two:.5f} against the "
+                  f"1-microbatch loss {one:.5f} (rel {rel:.2e}, tol "
+                  f"{TRAIN_MICROBATCH_REL}), "
+                  f"{1e3 * (time.perf_counter() - t0):.1f} ms, peak "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+                  f"[{card}]")
+            if not (math.isfinite(two) and rel <= TRAIN_MICROBATCH_REL):
+                raise AssertionError(f"{arch}: microbatched loss {two}, "
+                                     f"unbatched {one}")
+        if cfg.family == "ssm":
+            _train_wkv6_held(model, state, batch, card)
+            _train_split(model, state, batch, card)
+        del state, step, model, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _float32_model(arch: str):
+    """``arch`` at full size in float32 on the card: (model, params with
+    gradients on from seed 0, its training batch from phase_train's
+    stream)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.zoo import build_model
+
+    (nb, T), = [r[1:3] for r in TRAIN_RUNS if r[0] == arch]
+    cfg = dataclasses.replace(get_config(arch), dtype=torch.float32)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    params.requires_grad_(True)
+    return model, params, _train_batch(cfg, nb, T, model.device)
+
+
+def _loss_held(label: str, got: float, want: float) -> float:
+    rel = abs(got - want) / abs(want)
+    if not (math.isfinite(got) and rel <= TRAIN_GRAD_REL):
+        raise AssertionError(f"{label}: loss {got}, want {want}")
+    return rel
+
+
+def phase_train_grads(card: str) -> None:
+    """The training runs' gradients at full size in float32 (TF32 off),
+    random weights from seed 0, phase_train's batches.  llama3.2-1b: one
+    make_train_step with 2 microbatches against one loss.backward over
+    the whole batch, loss and every accumulated gradient within
+    TRAIN_GRAD_REL.  rwkv6-1.6b: one loss.backward with wkv6 on the
+    kernel (the autograd Function, on the chunked route once a layer)
+    against the same with wkv6_ref in its place, loss and every gradient
+    within TRAIN_GRAD_REL.  These launches are checks, not the training
+    path's."""
+    import repro_torch.models.rwkv6 as rwkv6_mod
+    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train.step import (TrainState, make_loss_fn,
+                                        make_train_step)
+
+    def backward(model, params, batch):
+        for p in params.parameters():
+            p.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = make_loss_fn(model)(params, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        return (loss.item(), dict(_param_grads(params)),
+                time.perf_counter() - t0)
+
+    arch = TRAIN_RUNS[0][0]
+    model, params, batch = _float32_model(arch)
+    one, g_one, one_s = backward(model, params, batch)
+    state = TrainState(params, optim.init(dict(params.named_parameters())))
+    t0 = time.perf_counter()
+    state, met = make_train_step(model, optim.OptConfig(**TRAIN_OPT), 2)(
+        state, batch)
+    two = float(met["loss"])
+    two_s = time.perf_counter() - t0
+    rel = _loss_held(f"float32 {arch} 2 microbatches", two, one)
+    worst = _grads_held(f"float32 {arch} 2 microbatches",
+                        _param_grads(state.params), g_one, TRAIN_GRAD_REL)
+    print(f"[train] {arch} float32: 2 microbatches' loss {two:.6f} against "
+          f"the whole batch's {one:.6f} (rel {rel:.2e}); {len(g_one)} "
+          f"accumulated gradients against the whole batch's, worst |diff| "
+          f"/ max|g| {worst:.2e} (tol {TRAIN_GRAD_REL}); {one_s:.2f} s "
+          f"forward + backward, {two_s:.2f} s the 2-microbatch step; peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
+    del model, params, batch, state, g_one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    arch = TRAIN_RUNS[1][0]
+    model, params, batch = _float32_model(arch)
+    n_layers = model.cfg.n_layers
+    _zero_counts(wkv6)
+    k_loss, k_grads, k_s = backward(model, params, batch)
+    if wkv6.launches_by_route["chunked"] != n_layers or \
+            wkv6.launches != n_layers:
+        raise AssertionError(f"float32 {arch}: wkv6 launches "
+                             f"{_counts(wkv6)}, want {n_layers} on chunked")
+    with mock.patch.object(rwkv6_mod, "wkv6", wkv6_ref):
+        p_loss, p_grads, p_s = backward(model, params, batch)
+    rel = _loss_held(f"float32 {arch}, kernel - plain wkv6", k_loss, p_loss)
+    worst = _grads_held(f"float32 {arch}, kernel - plain wkv6", k_grads,
+                        p_grads, TRAIN_GRAD_REL)
+    print(f"[train] {arch} float32: loss with the wkv6 kernel {k_loss:.6f},"
+          f" with wkv6_ref {p_loss:.6f} (rel {rel:.2e}); {len(p_grads)} "
+          f"gradients, worst |kernel - plain| / max|g| {worst:.2e} (tol "
+          f"{TRAIN_GRAD_REL}); forward + backward {k_s:.2f} s with the "
+          f"kernel, {p_s:.2f} s plain [{card}]")
+
+
+def phase_train_card_cpu(card: str) -> None:
+    """Training card against CPU: each of TRAIN_CARD_CPU at reduced() size
+    in float32 (TF32 off), one step from the CPU's parameters copied to
+    the card and the same batch: loss and grad_norm within
+    TRAIN_CARD_CPU_REL relative, every gradient within it of its tensor's
+    largest |g|, every MoE routing's idx and keep equal.  Then the wkv6
+    autograd Function's gradients of r, k, v, w, u and state0 against
+    autograd through wkv6_ref, float32, at WKV6_GRAD_CASES: its backward
+    is autograd through wkv6_ref, so this checks the Function's plumbing
+    (argument order, the gradients it returns and the ones it leaves
+    None), not the kernel; phase_train_grads checks that the kernel's
+    forward gives the gradients the plain one gives."""
+    import copy
+
+    import repro_torch.models.moe as moe
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train.step import TrainState, make_train_step
+
+    route = moe.moe_route
+    for arch in TRAIN_CARD_CPU:
+        cfg = get_config(arch).reduced()
+        rng = np.random.default_rng(0)
+        labels = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 8)))
+        if cfg.input_mode == "tokens":
+            inputs = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 8)))
+        else:
+            inputs = torch.from_numpy(rng.normal(size=(2, 8, cfg.d_model))
+                                      .astype(np.float32))
+        cpu_model = build_model(cfg, device="cpu")
+        cpu_params = cpu_model.init(torch.Generator().manual_seed(0))
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            model = cpu_model if dev == "cpu" else build_model(cfg)
+            params = copy.deepcopy(cpu_params).to(model.device)
+            params.requires_grad_(True)
+            state = TrainState(params, optim.init(
+                dict(params.named_parameters())))
+            seen = []
+
+            def recording(router, xf, k, C):
+                out = route(router, xf, k, C)
+                seen.append((out[2].cpu(), out[3].cpu()))
+                return out
+
+            with mock.patch.object(moe, "moe_route", recording):
+                state, met = make_train_step(
+                    model, optim.OptConfig(**TRAIN_OPT))(
+                    state, {"inputs": inputs.to(model.device),
+                            "labels": labels.to(model.device)})
+            runs[dev] = ({k: float(v) for k, v in met.items()},
+                         {n: g.cpu() for n, g in
+                          _param_grads(state.params).items()}, seen)
+        (cm, cg, cr), (pm, pg, pr) = runs["cuda"], runs["cpu"]
+        for key in ("loss", "grad_norm"):
+            if abs(cm[key] - pm[key]) > TRAIN_CARD_CPU_REL * abs(pm[key]):
+                raise AssertionError(f"{arch}: {key} card {cm[key]}, CPU "
+                                     f"{pm[key]}")
+        worst = _grads_held(f"{arch} card - CPU", cg, pg, TRAIN_CARD_CPU_REL)
+        if len(cr) != len(pr) or any(
+                not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))
+                for a, b in zip(cr, pr)):
+            raise AssertionError(f"{arch}: MoE routing differs card to CPU")
+        print(f"[train_card_cpu] {cfg.name} reduced: loss card "
+              f"{cm['loss']:.6f} CPU {pm['loss']:.6f}, grad_norm card "
+              f"{cm['grad_norm']:.6f} CPU {pm['grad_norm']:.6f}; "
+              f"{len(pg)} gradients, worst |card - CPU| / max|g| "
+              f"{worst:.2e} (tol {TRAIN_CARD_CPU_REL}); {len(pr)} MoE "
+              f"routings equal [{card}]")
+    gen = torch.Generator(device="cuda").manual_seed(83)
+    for d, T in WKV6_GRAD_CASES:
+        shape = (2, T, 2, d)
+        ins = [0.5 * torch.randn(shape, generator=gen, device="cuda"),
+               0.5 * torch.randn(shape, generator=gen, device="cuda"),
+               torch.randn(shape, generator=gen, device="cuda"),
+               0.9 + 0.099 * torch.rand(shape, generator=gen, device="cuda"),
+               0.3 * torch.randn((2, d), generator=gen, device="cuda"),
+               torch.randn((2, 2, d, d), generator=gen, device="cuda")]
+        ins = [t.requires_grad_() for t in ins]
+        g_out = torch.randn(shape, generator=gen, device="cuda")
+        g_state = torch.randn((2, 2, d, d), generator=gen, device="cuda")
+
+        def grads(fn):
+            out, st = fn(*ins)
+            return torch.autograd.grad([out, st], ins, [g_out, g_state])
+
+        before = wkv6.launches
+        got = grads(wkv6)
+        torch.cuda.synchronize()
+        if wkv6.launches != before + 1:
+            raise AssertionError("the wkv6 Function did not launch")
+        err = max(_held(f"wkv6 gradient D={d} T={T} of input {i}", g, w,
+                        (1e-4, 1e-4))
+                  for i, (g, w) in enumerate(zip(got, grads(wkv6_ref))))
+        print(f"[train_card_cpu] wkv6 Function D={d} T={T}: gradients of "
+              f"r, k, v, w, u, state0 against autograd through wkv6_ref, "
+              f"max_abs_err {err:.3e} (tol 1e-4) [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2283,9 +3004,23 @@ def main() -> int:
         lap(f"phase_embedded {arch}")
     phase_card_cpu(card)
     lap("phase_card_cpu")
+    phase_table1(card)
+    lap("phase_table1")
+    train_launches = phase_train(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase_train")
+    phase_train_grads(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase_train_grads")
+    phase_train_card_cpu(card)
+    lap("phase_train_card_cpu")
     for entry in entries:     # a routed kernel's entry: its route's count
+        counts = train_launches if entry.get("path") == "train" \
+            else launches
         key = f"{entry['name']}:{entry.get('kernel_route')}"
-        entry["launches"] = launches.get(key, launches[entry["name"]])
+        entry["launches"] = counts.get(key, counts[entry["name"]])
     print(f"[env] chip_smoke took {time.perf_counter() - t_start:.1f} s "
           f"[{card}]")
     print(json.dumps({"kernels": entries}))

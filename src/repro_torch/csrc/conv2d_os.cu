@@ -57,6 +57,19 @@
 //     channels and its 64 outputs in shared memory as float32, then every
 //     thread does 64 FMAs per (tap, channel).
 //   * Ragged edges are masked as on the other route.
+//
+// repro_conv2d_os_stream, the streaming route: taps whose SIMT block
+// (the patch with its halo and all KH x KW taps' weights, for 8 channels)
+// would not fit in a block's shared memory (11 x 11 and larger).  The
+// SIMT kernel's thread layout and sum order (Cin chunk, kh, kw, ci), so
+// its output is the SIMT route's bit for bit, but per (Cin chunk, tap
+// row kh, group of KWG taps of that row) the block stages only the 16
+// input rows that row needs, 16 + KWG - 1 columns wide, and the group's
+// weights: 48,640 bytes whatever the taps.
+//
+// Every route takes any N: the batch is the grid's z axis, at most 65535,
+// so a launch covers at most 65535 images and a larger batch is launched
+// in slices of that many (one C call).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,6 +85,7 @@ using repro::store2;
 using repro::to_float;
 
 constexpr int kMaxSmem = 232448;  // bytes a block may use on sm_90
+constexpr int kMaxGridZ = 65535;  // images a launch covers (grid.z)
 
 namespace simt {
 
@@ -192,10 +206,14 @@ int launch(const void* x, const void* w, void* out, int N, int H, int W,
         smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const dim3 grid(tiles, (Cout + BCO - 1) / BCO, N);
-  conv2d_os_kernel<T, TO><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<TO*>(out), H, W, Cin, Cout, KH, KW);
+  for (int n0 = 0; n0 < N; n0 += kMaxGridZ) {
+    const dim3 grid(tiles, (Cout + BCO - 1) / BCO, N - n0 < kMaxGridZ ? N - n0 : kMaxGridZ);
+    conv2d_os_kernel<T, TO><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(x) + static_cast<size_t>(n0) * H * W * Cin,
+        static_cast<const T*>(w),
+        static_cast<TO*>(out) + static_cast<size_t>(n0) * OH * OW * Cout, H,
+        W, Cin, Cout, KH, KW);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -207,6 +225,143 @@ int dispatch_out(int out_dtype, const void* x, const void* w, void* out,
     return launch<T, float>(x, w, out, N, H, W, Cin, Cout, KH, KW, st);
   if (out_dtype == 1)
     return launch<T, __nv_bfloat16>(x, w, out, N, H, W, Cin, Cout, KH, KW, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The streaming route (see the note at the top): simt's tile, threads and
+// sum order, the taps streamed through a fixed-size tile.
+constexpr int KWG = 16;           // taps of one row staged together
+constexpr int SPW = TW + KWG - 1; // columns of a staged patch row
+
+int stream_smem_bytes() {
+  return (TH * SPW * CC + KWG * CC * BCO) * static_cast<int>(sizeof(float));
+}
+
+// grid (tiles of the output plane, Cout tiles, images); kThreads threads.
+// Dynamic shared memory: the patch (TH, SPW, CC), then the weights (KWG,
+// CC, BCO), float32.
+template <typename T, typename TO>
+__global__ void __launch_bounds__(kThreads)
+    conv2d_os_stream_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                            TO* __restrict__ out, int H, int W, int Cin,
+                            int Cout, int KH, int KW) {
+  extern __shared__ __align__(16) float smem[];
+  const int OH = H - KH + 1, OW = W - KW + 1;
+  float* patch = smem;
+  float* ws = smem + TH * SPW * CC;
+
+  const int tiles_w = (OW + TW - 1) / TW;
+  const int oh0 = (blockIdx.x / tiles_w) * TH, ow0 = (blockIdx.x % tiles_w) * TW;
+  const int co0 = blockIdx.y * BCO;
+  const int n = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int tx = tid % (BCO / PC), ty = tid / (BCO / PC);
+  const int col = ty % TW, row0 = (ty / TW) * PX;
+
+  const T* xn = x + static_cast<size_t>(n) * H * W * Cin;
+
+  float acc[PX][PC];
+#pragma unroll
+  for (int i = 0; i < PX; ++i)
+#pragma unroll
+    for (int j = 0; j < PC; ++j) acc[i][j] = 0.f;
+
+  for (int c0 = 0; c0 < Cin; c0 += CC) {
+    for (int kh = 0; kh < KH; ++kh) {
+      for (int kw0 = 0; kw0 < KW; kw0 += KWG) {
+        const int nk = min(KWG, KW - kw0);
+        __syncthreads();  // the previous group is consumed
+        for (int idx = tid; idx < TH * SPW * CC; idx += kThreads) {
+          const int cc = idx % CC, pos = idx / CC;
+          const int h = oh0 + kh + pos / SPW, ww = ow0 + kw0 + pos % SPW;
+          const int ci = c0 + cc;
+          patch[idx] = (h < H && ww < W && ci < Cin)
+                           ? to_float(xn[(static_cast<size_t>(h) * W + ww) * Cin + ci])
+                           : 0.f;
+        }
+        for (int idx = tid; idx < nk * CC * BCO; idx += kThreads) {
+          const int co = idx % BCO, rest = idx / BCO;
+          const int ci = c0 + rest % CC, tap = kh * KW + kw0 + rest / CC;
+          ws[idx] = (ci < Cin && co0 + co < Cout)
+                        ? to_float(w[(static_cast<size_t>(tap) * Cin + ci) * Cout +
+                                     co0 + co])
+                        : 0.f;
+        }
+        __syncthreads();
+
+        for (int j = 0; j < nk; ++j) {
+          const float* xp = patch + (row0 * SPW + col + j) * CC;
+          const float* wp = ws + j * CC * BCO;
+#pragma unroll
+          for (int ci = 0; ci < CC; ++ci) {
+            float xv[PX], wv[PC];
+#pragma unroll
+            for (int i = 0; i < PX; ++i) xv[i] = xp[i * SPW * CC + ci];
+            const float4 w0 =
+                *reinterpret_cast<const float4*>(wp + ci * BCO + tx * 4);
+            const float4 w1 =
+                *reinterpret_cast<const float4*>(wp + ci * BCO + BCO / 2 + tx * 4);
+            wv[0] = w0.x; wv[1] = w0.y; wv[2] = w0.z; wv[3] = w0.w;
+            wv[4] = w1.x; wv[5] = w1.y; wv[6] = w1.z; wv[7] = w1.w;
+#pragma unroll
+            for (int i = 0; i < PX; ++i)
+#pragma unroll
+              for (int q = 0; q < PC; ++q)
+                acc[i][q] = fmaf(xv[i], wv[q], acc[i][q]);
+          }
+        }
+      }
+    }
+  }
+
+  const int ow = ow0 + col;
+  if (ow >= OW) return;
+#pragma unroll
+  for (int i = 0; i < PX; ++i) {
+    const int oh = oh0 + row0 + i;
+    if (oh >= OH) continue;
+    TO* op = out + ((static_cast<size_t>(n) * OH + oh) * OW + ow) * Cout;
+#pragma unroll
+    for (int j = 0; j < PC; ++j) {
+      const int co = co0 + (j < 4 ? tx * 4 + j : BCO / 2 + tx * 4 + j - 4);
+      if (co < Cout) op[co] = from_float<TO>(acc[i][j]);
+    }
+  }
+}
+
+template <typename T, typename TO>
+int launch_stream(const void* x, const void* w, void* out, int N, int H,
+                  int W, int Cin, int Cout, int KH, int KW,
+                  cudaStream_t stream) {
+  const int OH = H - KH + 1, OW = W - KW + 1;
+  const int tiles = ((OH + TH - 1) / TH) * ((OW + TW - 1) / TW);
+  const int smem = stream_smem_bytes();
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        conv2d_os_stream_kernel<T, TO>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  for (int n0 = 0; n0 < N; n0 += kMaxGridZ) {
+    const dim3 grid(tiles, (Cout + BCO - 1) / BCO, N - n0 < kMaxGridZ ? N - n0 : kMaxGridZ);
+    conv2d_os_stream_kernel<T, TO><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(x) + static_cast<size_t>(n0) * H * W * Cin,
+        static_cast<const T*>(w),
+        static_cast<TO*>(out) + static_cast<size_t>(n0) * OH * OW * Cout, H,
+        W, Cin, Cout, KH, KW);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_stream(int out_dtype, const void* x, const void* w, void* out,
+                    int N, int H, int W, int Cin, int Cout, int KH, int KW,
+                    cudaStream_t st) {
+  if (out_dtype == 0)
+    return launch_stream<T, float>(x, w, out, N, H, W, Cin, Cout, KH, KW, st);
+  if (out_dtype == 1)
+    return launch_stream<T, __nv_bfloat16>(x, w, out, N, H, W, Cin, Cout, KH,
+                                           KW, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -369,10 +524,14 @@ int launch(const void* x, const void* w, void* out, int N, int H, int W,
       conv2d_os_tc_kernel<TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(tiles, (Cout + BCO - 1) / BCO, N);
-  conv2d_os_tc_kernel<TO><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<TO*>(out), H, W, Cin, Cout, KH, KW);
+  for (int n0 = 0; n0 < N; n0 += kMaxGridZ) {
+    const dim3 grid(tiles, (Cout + BCO - 1) / BCO, N - n0 < kMaxGridZ ? N - n0 : kMaxGridZ);
+    conv2d_os_tc_kernel<TO><<<grid, kThreads, smem, stream>>>(
+        static_cast<const bf16*>(x) + static_cast<size_t>(n0) * H * W * Cin,
+        static_cast<const bf16*>(w),
+        static_cast<TO*>(out) + static_cast<size_t>(n0) * OH * OW * Cout, H,
+        W, Cin, Cout, KH, KW);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -380,7 +539,7 @@ int launch(const void* x, const void* w, void* out, int N, int H, int W,
 
 bool bad_shape(int N, int H, int W, int Cin, int Cout, int KH, int KW,
                int bco) {
-  return N <= 0 || N > 65535 || Cin <= 0 || Cout <= 0 || KH <= 0 || KW <= 0 ||
+  return N <= 0 || Cin <= 0 || Cout <= 0 || KH <= 0 || KW <= 0 ||
          KH > H || KW > W || (Cout + bco - 1) / bco > 65535;
 }
 
@@ -409,6 +568,25 @@ extern "C" int repro_conv2d_os(const void* x, const void* w, void* out, int N,
   if (dtype == 1)
     return simt::dispatch_out<__nv_bfloat16>(out_dtype, x, w, out, N, H, W,
                                              Cin, Cout, KH, KW, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The streaming route: as repro_conv2d_os, for any taps (the wrapper
+// sends it the taps whose SIMT block would not fit in shared memory).
+extern "C" int repro_conv2d_os_stream(const void* x, const void* w,
+                                      void* out, int N, int H, int W,
+                                      int Cin, int Cout, int KH, int KW,
+                                      int dtype, int out_dtype,
+                                      void* stream) {
+  if (bad_shape(N, H, W, Cin, Cout, KH, KW, simt::BCO))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return simt::dispatch_stream<float>(out_dtype, x, w, out, N, H, W, Cin,
+                                        Cout, KH, KW, st);
+  if (dtype == 1)
+    return simt::dispatch_stream<__nv_bfloat16>(out_dtype, x, w, out, N, H,
+                                                W, Cin, Cout, KH, KW, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

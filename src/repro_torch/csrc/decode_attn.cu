@@ -60,6 +60,12 @@
 //   * Each thread group keeps kKeys rows in flight per step and rescales
 //     its running sums once per step rather than once per row; the
 //     groups of a block merge through shared memory.
+//   * That kernel is instantiated for D 16, 32, 64 and 128.  Every other
+//     head_dim D >= 1 runs on decode_split_any_kernel: a warp takes one
+//     row at a time, its lanes striding over D for the score (the tail
+//     masked), and keeps a tile of kAnyDT columns of the running sum in
+//     registers; D past one tile takes further passes over the rows,
+//     each recomputing the scores.  Same splits, partials and merge.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -657,31 +663,193 @@ bool dispatch_d(int D, int G, const void* q, const void* k, const void* v,
   return false;
 }
 
+// The SIMT route at any head_dim D >= 1 (a runtime value).  grid and
+// block as decode_split_kernel; warp w of the block takes rows start + w,
+// start + w + kAnyWarps, ... of its split, one at a time.  For a row the
+// lanes stride over D for the G dot products (q and the row read by
+// scalar loads, the tail of D masked), reduce them by shuffles, and update
+// the online softmax state in base 2.  A lane keeps kAnyR columns d =
+// d0 + lane + 32 i of the running sum in registers, a tile of kAnyDT =
+// 32 kAnyR columns; for D > kAnyDT the block makes one pass over its rows
+// per tile, each recomputing the scores (same values, so the partial max
+// and denominator are written by the first pass).  The warps merge
+// through shared memory after each pass, as the groups of
+// decode_split_kernel do.
+constexpr int kAnyWarps = kThreads / 32;
+constexpr int kAnyR = 8;
+constexpr int kAnyDT = 32 * kAnyR;
+
+template <typename T, int GT>
+__global__ void __launch_bounds__(kThreads)
+    decode_split_any_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const int* __restrict__ lengths,
+                            float* __restrict__ part_m,
+                            float* __restrict__ part_l,
+                            float* __restrict__ part_acc, int Hkv, int G,
+                            int tiles, int S, int D, int chunk,
+                            float scale_log2) {
+  using repro::to_float;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int h = blockIdx.y / tiles, g0 = (blockIdx.y % tiles) * GT;
+  const int gn = min(GT, G - g0);
+  const int len = min(max(lengths[b], 0), S);
+  const int start = split * chunk;
+  if (start >= len) return;  // the merge reads only splits that hold rows
+  const int end = min(start + chunk, len);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t bh = static_cast<size_t>(b) * Hkv + h;
+  const T* kb = k + bh * S * D;
+  const T* vb = v + bh * S * D;
+  const T* qb = q + (bh * G + g0) * D;
+  const size_t part = (bh * gridDim.x + split) * G + g0;
+
+  __shared__ float sm_m[kAnyWarps][GT];
+  __shared__ float sm_l[kAnyWarps][GT];
+  __shared__ float sm_acc[kAnyWarps][GT][kAnyDT];
+
+  for (int d0 = 0; d0 < D; d0 += kAnyDT) {
+    float m[GT], l[GT], acc[GT][kAnyR];
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      m[g] = kNeg;
+      l[g] = 0.f;
+#pragma unroll
+      for (int i = 0; i < kAnyR; ++i) acc[g][i] = 0.f;
+    }
+    // The loop bound is the same for every lane of a warp, so the
+    // shuffles always run with the full warp.
+    for (int s = start + warp; s < end; s += kAnyWarps) {
+      const T* kr = kb + static_cast<size_t>(s) * D;
+      const T* vr = vb + static_cast<size_t>(s) * D;
+      float dot[GT];
+#pragma unroll
+      for (int g = 0; g < GT; ++g) dot[g] = 0.f;
+      for (int d = lane; d < D; d += 32) {
+        const float kd = to_float(kr[d]);
+#pragma unroll
+        for (int g = 0; g < GT; ++g)
+          if (g < gn) dot[g] = fmaf(to_float(qb[g * D + d]), kd, dot[g]);
+      }
+      float vd[kAnyR];
+#pragma unroll
+      for (int i = 0; i < kAnyR; ++i) {
+        const int d = d0 + lane + 32 * i;
+        vd[i] = d < D ? to_float(vr[d]) : 0.f;
+      }
+#pragma unroll
+      for (int g = 0; g < GT; ++g) {
+        float x = dot[g];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          x += __shfl_xor_sync(0xffffffffu, x, off);
+        const float sc = x * scale_log2;
+        const float mx = fmaxf(m[g], sc);
+        const float corr = exp2f(m[g] - mx), p = exp2f(sc - mx);
+        l[g] = fmaf(l[g], corr, p);
+#pragma unroll
+        for (int i = 0; i < kAnyR; ++i)
+          acc[g][i] = fmaf(p, vd[i], acc[g][i] * corr);
+        m[g] = mx;
+      }
+    }
+
+    if (lane == 0) {
+#pragma unroll
+      for (int g = 0; g < GT; ++g) {
+        sm_m[warp][g] = m[g];
+        sm_l[warp][g] = l[g];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      float mx = kNeg;
+      for (int j = 0; j < kAnyWarps; ++j) mx = fmaxf(mx, sm_m[j][g]);
+      const float sc = exp2f(m[g] - mx);
+#pragma unroll
+      for (int i = 0; i < kAnyR; ++i)
+        sm_acc[warp][g][lane + 32 * i] = acc[g][i] * sc;
+    }
+    __syncthreads();
+    for (int t = threadIdx.x; t < gn * kAnyDT; t += kThreads) {
+      const int g = t / kAnyDT, d = d0 + t % kAnyDT;
+      if (d >= D) continue;
+      float sum = 0.f;
+      for (int j = 0; j < kAnyWarps; ++j) sum += sm_acc[j][g][t % kAnyDT];
+      part_acc[(part + g) * D + d] = sum;
+    }
+    if (d0 == 0 && threadIdx.x < gn) {
+      const int g = threadIdx.x;
+      float mx = kNeg;
+      for (int j = 0; j < kAnyWarps; ++j) mx = fmaxf(mx, sm_m[j][g]);
+      float tot = 0.f;
+      for (int j = 0; j < kAnyWarps; ++j)
+        tot += sm_l[j][g] * exp2f(sm_m[j][g] - mx);
+      part_m[part + g] = mx;
+      part_l[part + g] = tot;
+    }
+    __syncthreads();  // the next pass reuses the merge buffers
+  }
+}
+
+template <typename T, int GT>
+void launch_any(const void* q, const void* k, const void* v,
+                const int* lengths, void* out, float* part_m, float* part_l,
+                float* part_acc, int B, int Hkv, int G, int S, int D,
+                int splits, int chunk, float scale, cudaStream_t stream) {
+  const int tiles = (G + GT - 1) / GT;
+  decode_split_any_kernel<T, GT>
+      <<<dim3(splits, Hkv * tiles, B), kThreads, 0, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), lengths, part_m, part_l, part_acc, Hkv,
+          G, tiles, S, D, chunk, scale * kLog2e);
+  const int threads = G * D < 256 ? G * D : 256;
+  decode_merge_kernel<T><<<B * Hkv, threads, 0, stream>>>(
+      part_m, part_l, part_acc, lengths, static_cast<const T*>(v),
+      static_cast<T*>(out), Hkv, G, D, S, splits, chunk);
+}
+
+template <typename T>
+void dispatch_any(int D, int G, const void* q, const void* k, const void* v,
+                  const int* lengths, void* out, float* pm, float* pl,
+                  float* pa, int B, int Hkv, int S, int splits, int chunk,
+                  float scale, cudaStream_t st) {
+  switch (group_tile(G, 8)) {
+    case 1: launch_any<T, 1>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, G, S, D, splits, chunk, scale, st); return;
+    case 2: launch_any<T, 2>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, G, S, D, splits, chunk, scale, st); return;
+    case 4: launch_any<T, 4>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, G, S, D, splits, chunk, scale, st); return;
+    default: launch_any<T, 8>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, G, S, D, splits, chunk, scale, st); return;
+  }
+}
+
 }  // namespace
 
 // The SIMT route.  q (B, Hkv, G, D), k/v (B, Hkv, S, D), out (B, Hkv, G,
 // D): contiguous, of one dtype (0 float32, 1 bfloat16), any G >= 1, the
 // query heads in tiles of group_tile(G, 8).  lengths (B,) int32.
 // Partials: part_m/part_l (B, Hkv, splits, G), part_acc (B, Hkv, splits,
-// G, D) float32.  Returns cudaGetLastError() after both launches, or
-// cudaErrorInvalidValue for a dtype, D or G the kernel is not built for.
+// G, D) float32.  D 16, 32, 64 and 128 run on decode_split_kernel, every
+// other D >= 1 on decode_split_any_kernel.  Returns cudaGetLastError()
+// after both launches, or cudaErrorInvalidValue for another dtype, D < 1,
+// G < 1 or S < 1.
 extern "C" int repro_decode_attn(const void* q, const void* k, const void* v,
                                  const void* lengths, void* out, void* part_m,
                                  void* part_l, void* part_acc, int B, int Hkv,
                                  int G, int S, int D, int splits, int chunk,
                                  float scale, int dtype, void* stream) {
-  if (G < 1 || S < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (G < 1 || S < 1 || D < 1 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int* len = static_cast<const int*>(lengths);
   float* pm = static_cast<float*>(part_m);
   float* pl = static_cast<float*>(part_l);
   float* pa = static_cast<float*>(part_acc);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bool ok = false;
-  if (dtype == 0)
-    ok = dispatch_d<float>(D, G, q, k, v, len, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st);
-  else if (dtype == 1)
-    ok = dispatch_d<__nv_bfloat16>(D, G, q, k, v, len, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st);
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0 && !dispatch_d<float>(D, G, q, k, v, len, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st))
+    dispatch_any<float>(D, G, q, k, v, len, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st);
+  if (dtype == 1 && !dispatch_d<__nv_bfloat16>(D, G, q, k, v, len, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st))
+    dispatch_any<__nv_bfloat16>(D, G, q, k, v, len, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st);
   return static_cast<int>(cudaGetLastError());
 }
 

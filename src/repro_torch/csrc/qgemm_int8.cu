@@ -60,9 +60,17 @@
 //     each thread reads 8 + 8 words per four k as int4s and does 64 dp4a.
 //   * The kernel masks the ragged edges of M, N and K itself: bytes past
 //     an edge read 0, which adds nothing to an integer sum.
+//   * K past kMaxK = (2^31 - 1) / 128^2 (the wrapper routes it here): the
+//     int32 sum of a dot product may leave int32's range, where the
+//     reference's int32 accumulator wraps.  The kernel is instantiated
+//     with kWrap then: it sums K in chunks of kChunkK <= kMaxK, each exact
+//     in int32, and adds the chunks' sums into a second accumulator in
+//     uint32, whose addition wraps modulo 2^32.  Int32 addition is
+//     associative modulo 2^32, so the total is the reference's word for
+//     word, wraps included.
 //
-// int32 cannot wrap on either route: the wrapper takes K <= (2^31 - 1) /
-// 128^2.
+// Up to kMaxK no int32 sum can wrap on either route; the tensor-core route
+// takes only K <= kMaxK.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,6 +90,11 @@ constexpr int BQ = BK / 4;  // int32 words of four k in a step
 constexpr int TM = 8, TN = 8;
 constexpr int kThreads = (BM / TM) * (BN / TN);  // 256
 constexpr int kPad = 4;
+// The largest K whose int32 sums cannot wrap, and the chunk of K (a whole
+// number of BK steps, at most kMaxK) that the wrapping instantiation sums
+// exactly before it adds the chunk into its uint32 total.
+constexpr int kMaxK = 2147483647 / (128 * 128);
+constexpr int kChunkK = kMaxK / BK * BK;
 
 // The byte at p (0 when not in range), as the low byte of a word.
 __device__ __forceinline__ uint32_t byte_at(const int8_t* p, bool in) {
@@ -94,8 +107,9 @@ __device__ __forceinline__ int pack(uint32_t b0, uint32_t b1, uint32_t b2,
   return static_cast<int>(b0 | b1 << 8 | b2 << 16 | b3 << 24);
 }
 
-// grid (gn, gm); kThreads threads.
-template <typename TO>
+// grid (gn, gm); kThreads threads.  kWrap: K > kMaxK, summed in chunks
+// (see the note at the top).
+template <typename TO, bool kWrap>
 __global__ void __launch_bounds__(kThreads)
     qgemm_int8_kernel(const int8_t* __restrict__ A,
                       const int8_t* __restrict__ B,
@@ -112,12 +126,32 @@ __global__ void __launch_bounds__(kThreads)
   const bool k_words = (K % 4) == 0;
 
   int acc[TM][TN];
+  uint32_t total[kWrap ? TM : 1][kWrap ? TN : 1];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0;
+  // The chunk's exact int32 sums into the wrapping total; acc restarts.
+  auto fold = [&]() {
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        if constexpr (kWrap) total[i][j] += static_cast<uint32_t>(acc[i][j]);
+        acc[i][j] = 0;
+      }
+  };
+  if constexpr (kWrap) {
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) total[i][j] = 0u;
+  }
 
   for (int k0 = 0; k0 < K; k0 += BK) {
+    if constexpr (kWrap) {
+      if (k0 > 0 && k0 % kChunkK == 0) fold();
+    }
     // A: word q of row r, for q = tid % 8 and r = tid / 8 + 32 i.
 #pragma unroll
     for (int i = 0; i < BM * BQ / kThreads; ++i) {
@@ -170,6 +204,14 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
 
+  if constexpr (kWrap) {
+    fold();
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = static_cast<int>(total[i][j]);
+  }
+
   // Epilogue: rows m0 + ty * 8 + i, columns n0 + tx * 4 + j and
   // n0 + 64 + tx * 4 + j (j < 4), as in gemm_os.cu.
 #pragma unroll
@@ -193,8 +235,12 @@ int launch(const int8_t* a, const int8_t* b, const float* sa,
            const float* sb, void* c, int M, int N, int K,
            cudaStream_t stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  qgemm_int8_kernel<TO><<<grid, kThreads, 0, stream>>>(
-      a, b, sa, sb, static_cast<TO*>(c), M, N, K);
+  if (K > kMaxK)
+    qgemm_int8_kernel<TO, true><<<grid, kThreads, 0, stream>>>(
+        a, b, sa, sb, static_cast<TO*>(c), M, N, K);
+  else
+    qgemm_int8_kernel<TO, false><<<grid, kThreads, 0, stream>>>(
+        a, b, sa, sb, static_cast<TO*>(c), M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -484,8 +530,9 @@ bool aligned16(const void* p) {
 
 // The SIMT route.  a (M, K), b (K, N) int8 and c (M, N) of out_dtype (0
 // float32, 1 bfloat16), row-major and contiguous; a_scale (M,), b_scale
-// (N,) float32.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for an out_dtype or shape the kernel does not take.
+// (N,) float32; any K >= 1 (past kMaxK summed in wrapping chunks).
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// an out_dtype or shape the kernel does not take.
 extern "C" int repro_qgemm_int8(const void* a, const void* b,
                                 const void* a_scale, const void* b_scale,
                                 void* c, int M, int N, int K, int out_dtype,
@@ -504,16 +551,17 @@ extern "C" int repro_qgemm_int8(const void* a, const void* b,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The tensor-core route: as repro_qgemm_int8 with K and N multiples of 16
-// and a, b and c 16-byte aligned.  Returns cudaErrorInvalidValue for
-// anything else, and cudaErrorSharedObjectSymbolNotFound when libcuda's
-// tensor-map encoder cannot be found.
+// The tensor-core route: as repro_qgemm_int8 with K and N multiples of 16,
+// K <= kMaxK (no int32 sum can wrap), and a, b and c 16-byte aligned.
+// Returns cudaErrorInvalidValue for anything else, and
+// cudaErrorSharedObjectSymbolNotFound when libcuda's tensor-map encoder
+// cannot be found.
 extern "C" int repro_qgemm_int8_tc(const void* a, const void* b,
                                    const void* a_scale, const void* b_scale,
                                    void* c, int M, int N, int K,
                                    int out_dtype, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0 || N % 16 != 0 ||
-      !aligned16(a) || !aligned16(b) || !aligned16(c) ||
+      K > simt::kMaxK || !aligned16(a) || !aligned16(b) || !aligned16(c) ||
       (M + tc::BM - 1) / tc::BM > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* sa = static_cast<const float*>(a_scale);

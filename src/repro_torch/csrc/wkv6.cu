@@ -35,6 +35,8 @@
 // write, and no other thread reads it.
 // Tensor cores are not used: the recurrence is a rank-1 update per step,
 // and float32 products are needed (TF32 breaks the 1e-4 tolerance).
+// The kernels above are instantiated for D 16, 32, 64 and 128; every other
+// D >= 1 runs on wkv6_any_kernel (below), on both routes.
 //
 // Two routes, chosen by the wrapper from the shape (kernels/wkv6/kernel.py:
 // route), one C entry each:
@@ -72,6 +74,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "convert.cuh"
 
 namespace {
 
@@ -657,13 +661,149 @@ bool dispatch_chunked(int D, const void* r, const void* k, const void* v,
   return false;
 }
 
+// ---- any D: the same function at a head size the kernels above are not
+// instantiated for (a runtime D >= 1).  One thread owns one column e of a
+// (b, h)'s D x D state, as in wkv6_kernel, and a block of kAnyCols threads
+// a tile of columns (the last tile masked).  The column lives in the
+// float32 output it ends in (state_out or the chunk's slot of L), read and
+// written in place, so no D is refused; neighbouring threads own
+// neighbouring columns, so each access is coalesced.  Each step
+// reads its r, k and w rows by broadcast loads (every thread of the warp
+// reads the same address) and walks d in order, one fused multiply-add
+// chain a d as in step() above.  Speed is not its point: no config of the
+// zoo has such a head size; it gives the route an answer for every shape
+// the reference computes.
+//
+// Local (kCorrect false), grid (B * n_chunks, H, cdiv(D, kAnyCols)):
+// chunk c of (b, h), steps [c * ct, min((c + 1) * ct, T)), from state0
+// in chunk 0 and zeros in every other, outputs of chunk 0 to out and of
+// the others to local; the end state to slot (b * n_chunks + c) * H + h
+// of L, and, with W given, the chunk's decay products to W (tile 0 only).
+// The step route is one chunk of T steps with L = state_out.
+// Correct (kCorrect true), grid (B * (n_chunks - 1), H, cdiv(D,
+// kAnyCols)): chunk c >= 1 starts from Q = S_c (slot c - 1 of L after the
+// scan) and runs the same recurrence with no k v term: out_t = local_t +
+// r_t . Q[:, e], then Q <- diag(w_t) Q, so Q_t = diag(p_t) S_c, p_t the
+// product of the chunk's decays before step t, as wkv6_correct_kernel.
+constexpr int kAnyCols = 32;
+
+template <typename T, bool kCorrect>
+__global__ void __launch_bounds__(kAnyCols)
+    wkv6_any_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ w,
+                    const float* __restrict__ u, const float* state0,
+                    T* __restrict__ out, float* __restrict__ local, float* L,
+                    float* __restrict__ W, int T_len, int H, int D, int ct,
+                    int n_chunks) {
+  using repro::to_float;
+  const int blocks = kCorrect ? n_chunks - 1 : n_chunks;
+  const int b = blockIdx.x / blocks;
+  const int c = blockIdx.x % blocks + (kCorrect ? 1 : 0);
+  const int h = blockIdx.y;
+  const int e = blockIdx.z * kAnyCols + threadIdx.x;
+  const int t_begin = c * ct, t_end = min(T_len, t_begin + ct);
+  const size_t DD = static_cast<size_t>(D) * D;
+  const size_t row = static_cast<size_t>(H) * D;  // stride of t
+  const size_t base = static_cast<size_t>(b) * T_len * row +
+                      static_cast<size_t>(h) * D;
+  // The slot of L this block's columns start from (correct) or end in.
+  const size_t slot =
+      (static_cast<size_t>(b) * n_chunks + c - (kCorrect ? 1 : 0)) * H + h;
+
+  if (!kCorrect && W != nullptr && blockIdx.z == 0) {
+    for (int d = threadIdx.x; d < D; d += kAnyCols) {
+      float p = 1.f;
+      for (int t = t_begin; t < t_end; ++t)
+        p *= to_float(w[base + static_cast<size_t>(t) * row + d]);
+      W[slot * D + d] = p;
+    }
+  }
+  if (e >= D) return;  // no barrier follows
+
+  float* S = L + slot * DD + e;  // S[d, e] at S[d * D]
+  if (!kCorrect) {
+    const float* s0 = (c == 0 && state0)
+                          ? state0 + (static_cast<size_t>(b) * H + h) * DD + e
+                          : nullptr;
+    for (int d = 0; d < D; ++d)
+      S[static_cast<size_t>(d) * D] = s0 ? s0[static_cast<size_t>(d) * D] : 0.f;
+  }
+  const float* uh = u + static_cast<size_t>(h) * D;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const size_t at = base + static_cast<size_t>(t) * row;
+    const float ve = kCorrect ? 0.f : to_float(v[at + e]);
+    float acc = 0.f;
+    for (int d = 0; d < D; ++d) {
+      float& s = S[static_cast<size_t>(d) * D];
+      const float rd = to_float(r[at + d]), wd = to_float(w[at + d]);
+      if (kCorrect) {
+        acc = fmaf(rd, s, acc);
+        s *= wd;
+      } else {
+        acc = step(s, rd, to_float(k[at + d]), wd, __ldg(uh + d), ve, acc);
+      }
+    }
+    if (kCorrect)
+      out[at + e] = Vec<T>::store(local[at + e] + acc);
+    else if (c == 0)
+      out[at + e] = Vec<T>::store(acc);
+    else
+      local[at + e] = acc;
+  }
+}
+
+template <typename T, bool kCorrect>
+void launch_any(int grid_x, int H, int D, const void* r, const void* k,
+                const void* v, const void* w, const float* u, const float* s0,
+                void* out, float* local, float* L, float* W, int T_len,
+                int ct, int n_chunks, cudaStream_t stream) {
+  wkv6_any_kernel<T, kCorrect>
+      <<<dim3(grid_x, H, (D + kAnyCols - 1) / kAnyCols), kAnyCols, 0,
+         stream>>>(static_cast<const T*>(r), static_cast<const T*>(k),
+                   static_cast<const T*>(v), static_cast<const T*>(w), u, s0,
+                   static_cast<T*>(out), local, L, W, T_len, H, D, ct,
+                   n_chunks);
+}
+
+// The step route at any D: one chunk of T steps ending in state_out.
+template <typename T>
+void launch_any_step(const void* r, const void* k, const void* v,
+                     const void* w, const float* u, const float* s0, void* out,
+                     float* s_out, int B, int T_len, int H, int D,
+                     cudaStream_t st) {
+  launch_any<T, false>(B, H, D, r, k, v, w, u, s0, out, nullptr, s_out,
+                       nullptr, T_len, T_len, 1, st);
+}
+
+// The chunked route at any D: the three passes of launch_chunked, the
+// local and correcting ones on wkv6_any_kernel.
+template <typename T>
+void launch_any_chunked(const void* r, const void* k, const void* v,
+                        const void* w, const float* u, const float* s0,
+                        void* out, float* s_out, float* local, float* L,
+                        float* W, int B, int T_len, int H, int D, int ct,
+                        cudaStream_t st) {
+  const int n_chunks = (T_len + ct - 1) / ct;
+  launch_any<T, false>(B * n_chunks, H, D, r, k, v, w, u, s0, out, local, L,
+                       W, T_len, ct, n_chunks, st);
+  const size_t n = static_cast<size_t>(B) * H * D * D;
+  wkv6_scan_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
+      L, W, s_out, B, H, D, n_chunks);
+  if (n_chunks > 1)
+    launch_any<T, true>(B * (n_chunks - 1), H, D, r, nullptr, nullptr, w,
+                        u, nullptr, out, local, L, nullptr, T_len, ct,
+                        n_chunks, st);
+}
+
 }  // namespace
 
 // r/k/v/w/out (B, T, H, D) contiguous, of one dtype (0 float32, 1
 // bfloat16); u (H, D) float32; state0 (B, H, D, D) float32 or null for
 // zeros; state_out (B, H, D, D) float32.  Returns cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue for a dtype or D the kernel is not
-// built for.
+// the launch, or cudaErrorInvalidValue for another dtype, D < 1 or T < 0.
+// D 16, 32, 64 and 128 run on wkv6_kernel, every other D on
+// wkv6_any_kernel.
 extern "C" int repro_wkv6(const void* r, const void* k, const void* v,
                           const void* w, const void* u, const void* state0,
                           void* out, void* state_out, int B, int T_len, int H,
@@ -672,12 +812,12 @@ extern "C" int repro_wkv6(const void* r, const void* k, const void* v,
   const float* s0 = static_cast<const float*>(state0);
   float* so = static_cast<float*>(state_out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bool ok = false;
-  if (dtype == 0)
-    ok = dispatch_d<float>(D, r, k, v, w, uf, s0, out, so, B, T_len, H, st);
-  else if (dtype == 1)
-    ok = dispatch_d<__nv_bfloat16>(D, r, k, v, w, uf, s0, out, so, B, T_len, H, st);
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (D < 1 || T_len < 0 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0 && !dispatch_d<float>(D, r, k, v, w, uf, s0, out, so, B, T_len, H, st))
+    launch_any_step<float>(r, k, v, w, uf, s0, out, so, B, T_len, H, D, st);
+  if (dtype == 1 && !dispatch_d<__nv_bfloat16>(D, r, k, v, w, uf, s0, out, so, B, T_len, H, st))
+    launch_any_step<__nv_bfloat16>(r, k, v, w, uf, s0, out, so, B, T_len, H, D, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -686,8 +826,9 @@ extern "C" int repro_wkv6(const void* r, const void* k, const void* v,
 // argument: local (B, T, H, D); L (B, n_chunks, H, D, D); W (B, n_chunks,
 // H, D); n_chunks = cdiv(T, ct).  state_out may alias state0: state0 is
 // read by the first launch only, state_out written by the second.  Returns cudaGetLastError() after the launches, or
-// cudaErrorInvalidValue for a dtype, D or ct the kernels are not built
-// for.
+// cudaErrorInvalidValue for another dtype, D < 1, ct < 1 or T < 1.  D
+// 16, 32, 64 and 128 run on the kernels instantiated for them, every
+// other D on wkv6_any_kernel.
 extern "C" int repro_wkv6_chunked(const void* r, const void* k,
                                   const void* v, const void* w,
                                   const void* u, const void* state0,
@@ -702,11 +843,11 @@ extern "C" int repro_wkv6_chunked(const void* r, const void* k,
   float* Lf = static_cast<float*>(L);
   float* Wf = static_cast<float*>(W);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bool ok = false;
-  if (dtype == 0)
-    ok = dispatch_chunked<float>(D, r, k, v, w, uf, s0, out, so, lo, Lf, Wf, B, T_len, H, ct, st);
-  else if (dtype == 1)
-    ok = dispatch_chunked<__nv_bfloat16>(D, r, k, v, w, uf, s0, out, so, lo, Lf, Wf, B, T_len, H, ct, st);
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (D < 1 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0 && !dispatch_chunked<float>(D, r, k, v, w, uf, s0, out, so, lo, Lf, Wf, B, T_len, H, ct, st))
+    launch_any_chunked<float>(r, k, v, w, uf, s0, out, so, lo, Lf, Wf, B, T_len, H, D, ct, st);
+  if (dtype == 1 && !dispatch_chunked<__nv_bfloat16>(D, r, k, v, w, uf, s0, out, so, lo, Lf, Wf, B, T_len, H, ct, st))
+    launch_any_chunked<__nv_bfloat16>(r, k, v, w, uf, s0, out, so, lo, Lf, Wf, B, T_len, H, D, ct, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,8 +18,15 @@ the dtype and the pointers' alignment before the launch:
   memory.  A block owns a 16 x 16 patch of output pixels and 64 output
   channels and walks Cin in chunks of 8, staging the patch and all taps'
   weights.
+* ``stream``: the taps whose SIMT block would not fit in shared memory
+  (11 x 11 and larger, 1 x 88 and wider).  The SIMT kernel's tile,
+  threads and sum order, but per tap row and group of ``STREAM_TAPS``
+  taps it stages only the input rows and weights that group needs, in a
+  fixed 48,640 bytes.
 
-Both mask ragged Cin, Cout and output edges, so nothing is padded.
+All mask ragged Cin, Cout and output edges, so nothing is padded, and
+take any batch N: a launch covers at most 65535 images (grid.z), so a
+larger batch is launched in slices inside one C call.
 """
 from __future__ import annotations
 
@@ -33,13 +40,14 @@ from .. import _build
 from ..common import check_on_card
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-ROUTES = ("tensor_core", "simt")
+ROUTES = ("tensor_core", "simt", "stream")
 MAX_SMEM = 232448  # kMaxSmem in the source: bytes a block may use
 # Constants of the two routes in the source (namespaces simt and tc):
 # output pixels of a block, output channels, input channels a step
 TILE, BCO, CC = 16, 64, 8
 TC_TILE, TC_BCO, TC_CC = (16, 16), 64, 64
 TC_PSTR, TC_WSTR, TC_STAGES = 2 * TC_CC + 16, 2 * TC_BCO + 16, 2
+STREAM_TAPS = 16   # KWG in the source: taps of one row staged together
 
 
 class Route(NamedTuple):
@@ -55,6 +63,14 @@ def smem_bytes(KH: int, KW: int) -> int:
     """Shared memory of one SIMT block: the input patch with its halo,
     then all taps' weights, for one chunk of CC channels, in float32."""
     return 4 * ((TILE + KH - 1) * (TILE + KW - 1) * CC + KH * KW * CC * BCO)
+
+
+def stream_smem_bytes() -> int:
+    """Shared memory of one streaming block, whatever the taps: TILE input
+    rows of TILE + STREAM_TAPS - 1 pixels and STREAM_TAPS taps' weights,
+    CC channels deep, in float32."""
+    return 4 * (TILE * (TILE + STREAM_TAPS - 1) * CC
+                + STREAM_TAPS * CC * BCO)
 
 
 def tc_smem_bytes(KH: int, KW: int) -> int:
@@ -74,11 +90,14 @@ def route(Cin: int, Cout: int, KH: int, KW: int, dtype: torch.dtype,
     bfloat16, and the tensor-core block's patch buffers must fit in shared
     memory (wide non-square taps, such as 1 x 32 and wider, fit only the
     SIMT block); float32 stays on the SIMT kernel, whose IEEE FMAs hold
-    the 1e-4 float32 tolerance."""
+    the 1e-4 float32 tolerance.  Taps whose SIMT block would not fit
+    either go to the streaming kernel, whose block has a fixed size."""
     if dtype == torch.bfloat16 and Cin % 8 == 0 and Cout % 8 == 0 and \
             aligned and tc_smem_bytes(KH, KW) <= MAX_SMEM:
         return Route("tensor_core", TC_TILE, TC_BCO, tc_smem_bytes(KH, KW))
-    return Route("simt", (TILE, TILE), BCO, smem_bytes(KH, KW))
+    if smem_bytes(KH, KW) <= MAX_SMEM:
+        return Route("simt", (TILE, TILE), BCO, smem_bytes(KH, KW))
+    return Route("stream", (TILE, TILE), BCO, stream_smem_bytes())
 
 
 @functools.cache
@@ -92,7 +111,10 @@ def _entries():
     tc.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     tc.restype = ctypes.c_int
-    return simt, tc
+    stream = lib.repro_conv2d_os_stream
+    stream.argtypes = simt.argtypes
+    stream.restype = ctypes.c_int
+    return {"simt": simt, "tensor_core": tc, "stream": stream}
 
 
 def conv2d_os_cuda(x: torch.Tensor, w: torch.Tensor, *,
@@ -117,29 +139,25 @@ def conv2d_os_cuda(x: torch.Tensor, w: torch.Tensor, *,
                          f"KH <= H, KW <= W")
     N, H, W, Cin = x.shape
     KH, KW, _, Cout = w.shape
-    if min(N, Cin, Cout, KH, KW) == 0 or N > 65535:
-        raise ValueError(f"conv2d_os kernel takes 1 <= N <= 65535 and "
-                         f"nonempty channels and taps, got x "
-                         f"{tuple(x.shape)}, w {tuple(w.shape)}")
+    if min(N, Cin, Cout, KH, KW) == 0:
+        raise ValueError(f"conv2d_os kernel takes a nonempty batch, "
+                         f"channels and taps, got x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}")
     # out comes from torch.empty, whose allocations are aligned
     r = route(Cin, Cout, KH, KW, x.dtype,
               all(t.data_ptr() % 16 == 0 for t in (x, w)))
-    if r.smem > MAX_SMEM:
-        raise ValueError(f"{KH} x {KW} taps need {r.smem} bytes of shared "
-                         f"memory on the {r.kind} route, more than a block "
-                         f"has")
     check_on_card([("x", x), ("w", w)])
     out = torch.empty((N, H - KH + 1, W - KW + 1, Cout), dtype=out_dtype,
                       device=x.device)
-    simt, tc = _entries()
+    fn = _entries()[r.kind]
     args = (x.data_ptr(), w.data_ptr(), out.data_ptr(), N, H, W, Cin, Cout,
             KH, KW)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if r.kind == "tensor_core":
-            err = tc(*args, _DTYPES[out_dtype], stream)
+            err = fn(*args, _DTYPES[out_dtype], stream)
         else:
-            err = simt(*args, _DTYPES[x.dtype], _DTYPES[out_dtype], stream)
+            err = fn(*args, _DTYPES[x.dtype], _DTYPES[out_dtype], stream)
     if err != 0:
         raise RuntimeError(f"conv2d_os kernel launch failed ({r.kind} "
                            f"route): CUDA error {err}")

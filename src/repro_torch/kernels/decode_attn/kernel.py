@@ -9,8 +9,10 @@ the head shape and the pointers' alignment before the launch:
   ``mma.sync``: each warp streams its keys through a ring of cp.async
   stages; splits of ``split_plan_tc``.
 * ``simt``: float32 (whose 2e-4 tolerance TF32 would break) and every
-  other call; float32 FMAs over 16-byte vectors; splits of
-  ``split_plan``.
+  other call; float32 FMAs over 16-byte vectors at a head_dim in
+  ``HEAD_DIMS``, and at every other head_dim D >= 1 the source's
+  ``decode_split_any_kernel`` (a warp a row, lanes striding over D,
+  scalar loads); splits of ``split_plan``.
 
 On both the S axis is split across blocks so that a decode batch, which
 has only B * Hkv (batch, kv-head) pairs, still fills the card; a second
@@ -31,11 +33,12 @@ from .. import _build
 from ..common import cdiv, check_on_card
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)   # head_dims the vector kernels are built for
 # Query-head tiles each route's kernels are instantiated for (group_tile)
 TILES = {"tensor_core": (1, 2, 4, 8, 16), "simt": (1, 2, 4, 8)}
 _THREADS = 128            # kThreads in the source
 _KEYS = 4                 # kKeys in the source
+_ANY_ROWS = _THREADS // 32   # rows a loop trip of the any-D kernel reads
 BLOCKS_PER_SM = 8         # split target: this many split blocks per SM
 ROUTES = ("tensor_core", "simt")
 TC_TILE = 64              # keys a tensor-core block takes per step (TILE)
@@ -68,8 +71,9 @@ def route(D: int, G: int, dtype: torch.dtype, aligned: bool = True) -> str:
     16-byte aligned.  bfloat16 at a head_dim it is built for goes to the
     tensor cores whatever G is: up to 16 heads are the rows of one m16
     tile, more run as several tiles (``group_tile``), each reading K/V
-    once.  Every other call goes to the SIMT kernel, which refuses what it
-    cannot take either."""
+    once.  Every other call goes to the SIMT route, which takes any
+    head_dim: the vector kernel at ``HEAD_DIMS``, the any-D kernel
+    elsewhere."""
     del G     # every group runs on either route
     if dtype == torch.bfloat16 and D in HEAD_DIMS and aligned:
         return "tensor_core"
@@ -86,10 +90,14 @@ def group_tile(G: int, kind: str) -> int:
 def split_plan(B: int, Hkv: int, S: int, D: int, dtype: torch.dtype,
                n_sms: int):
     """(splits, chunk): chunk is a whole number of the block's steps
-    (rows read per loop trip), and there are about BLOCKS_PER_SM split
-    blocks per SM when S is long enough."""
-    vec = 16 // dtype.itemsize
-    step = (_THREADS // (D // vec)) * _KEYS
+    (rows read per loop trip: the vector kernel's thread groups times
+    their keys at ``HEAD_DIMS``, the any-D kernel's warps elsewhere), and
+    there are about BLOCKS_PER_SM split blocks per SM when S is long
+    enough."""
+    if D in HEAD_DIMS:
+        step = (_THREADS // (D // (16 // dtype.itemsize))) * _KEYS
+    else:
+        step = _ANY_ROWS
     want = max(1, cdiv(BLOCKS_PER_SM * n_sms, B * Hkv))
     chunk = cdiv(cdiv(S, min(want, cdiv(S, step))), step) * step
     return cdiv(S, chunk), chunk
@@ -129,18 +137,21 @@ def decode_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if lengths.dtype != torch.int32:
         raise TypeError(f"lengths must be int32, got {lengths.dtype}")
-    if D not in HEAD_DIMS or G < 1:
-        raise ValueError(f"decode_attn kernel is built for head_dim in "
-                         f"{HEAD_DIMS} and H/Hkv >= 1, got D={D}, G={G}")
+    if D < 1 or G < 1:
+        raise ValueError(f"decode_attn kernel takes head_dim >= 1 and "
+                         f"H/Hkv >= 1, got D={D}, G={G}")
     if k.shape != (B, Hkv, S, D) or v.shape != k.shape or \
             lengths.shape != (B,):
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}, lengths {tuple(lengths.shape)}")
     check_on_card([("q", q), ("k", k), ("v", v), ("lengths", lengths)])
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:     # the kernel reads 16-byte vectors
+        # the kernels built for HEAD_DIMS read 16-byte vectors
+        if D in HEAD_DIMS and t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    kind = route(D, G, q.dtype)    # every pointer is 16-byte aligned here
+    # at HEAD_DIMS every pointer is 16-byte aligned here; elsewhere the
+    # route is simt whatever the alignment
+    kind = route(D, G, q.dtype)
     splits, chunk = plan(kind, B, Hkv, G, S, D, q.dtype,
                          _sm_count(q.device.index))
     out = torch.empty_like(q)

@@ -13,7 +13,10 @@ the dtype and the pointers' alignment before the launch:
 
 On both a block keeps its int32 accumulator on chip and applies the
 scales once at the end in the plain version's order, so the output
-agrees with it bit for bit.  Both mask ragged M, N and K.
+agrees with it bit for bit.  Both mask ragged M, N and K.  K past
+``K_MAX``, where an int32 sum may wrap as the reference's does, runs on
+the SIMT kernel's wrapping instantiation: K in chunks whose int32 sums
+are exact, added modulo 2^32, word for word the reference's.
 """
 from __future__ import annotations
 
@@ -29,14 +32,8 @@ from ..common import check_on_card
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("tensor_core", "simt")
 # The largest K whose int32 sums cannot wrap: |a * b| <= 128^2 for int8,
-# and K * 128^2 must stay at or below 2^31 - 1.
+# and K * 128^2 must stay at or below 2^31 - 1 (kMaxK in the source).
 K_MAX = (2 ** 31 - 1) // 128 ** 2
-
-
-def check_k(K: int) -> None:
-    if K > K_MAX:
-        raise ValueError(f"K={K} could wrap the int32 accumulator; "
-                         f"qgemm_int8 takes K <= {K_MAX}")
 
 
 def route(M: int, K: int, N: int, dtype: torch.dtype = torch.int8,
@@ -44,10 +41,11 @@ def route(M: int, K: int, N: int, dtype: torch.dtype = torch.int8,
     """The route of an (M, K) @ (K, N) product of ``dtype`` inputs;
     ``aligned`` says whether every pointer is 16-byte aligned.  TMA needs
     row strides that are multiples of 16 bytes (K and N multiples of 16
-    in int8) and aligned bases; every other call, a dtype the kernels do
-    not take among them (which the SIMT launcher then refuses), goes to
-    the SIMT kernel."""
-    if dtype == torch.int8 and K % 16 == 0 and N % 16 == 0 and aligned:
+    in int8) and aligned bases, and takes K up to ``K_MAX``; every other
+    call, K past ``K_MAX`` and a dtype the kernels do not take among them
+    (which the SIMT launcher then refuses), goes to the SIMT kernel."""
+    if dtype == torch.int8 and K % 16 == 0 and N % 16 == 0 and aligned \
+            and K <= K_MAX:
         return "tensor_core"
     return "simt"
 
@@ -88,7 +86,6 @@ def qgemm_int8_cuda(a: torch.Tensor, b: torch.Tensor, a_scale: torch.Tensor,
     N = b.shape[1]
     if min(M, K, N) == 0:
         raise ValueError(f"empty product: M={M}, K={K}, N={N}")
-    check_k(K)
     check_on_card([("a", a), ("b", b), ("a_scale", a_scale),
                    ("b_scale", b_scale)])
     if a.data_ptr() % 4:     # the SIMT kernel reads a's rows in 4-byte words

@@ -6,12 +6,16 @@ import torch
 
 
 def int_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The exact int32 product of int8 a (M, K) and b (K, N).
+    """The int32 product of int8 a (M, K) and b (K, N), wrapping modulo
+    2^32 as the reference's int32 accumulator does once K * 128^2 passes
+    2^31 - 1.
 
     PyTorch multiplies int32 matrices on the CPU but not on CUDA, so the
     product is taken in float64: every partial sum is an integer of at
-    most K * 128^2, exact while that stays below 2^53."""
-    return torch.matmul(a.double(), b.double()).to(torch.int32)
+    most K * 128^2, exact while that stays below 2^53.  The exact sum goes
+    through int64 to int32, which keeps its low 32 bits."""
+    return torch.matmul(a.double(), b.double()).to(torch.int64) \
+        .to(torch.int32)
 
 
 def qgemm_ref(a: torch.Tensor, b: torch.Tensor, a_scale: torch.Tensor,

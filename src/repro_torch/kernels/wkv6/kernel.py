@@ -13,6 +13,11 @@ before the launch:
   carries the state (only products of decays, no division), and a
   correction adds each chunk's carried-in state to its outputs.  Three
   launches in one C call, with float32 scratch from PyTorch's allocator.
+
+Both routes take any head size D >= 1: D in ``HEAD_DIMS`` runs on the
+kernels instantiated for it, every other D on the source's
+``wkv6_any_kernel`` (one thread a column of the state, D a runtime
+value), inside the same C entry points.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ from .. import _build
 from ..common import cdiv, check_on_card
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)   # D the fast kernels are instantiated for
 ROUTES = ("step", "chunked")
 CHUNK_T = 64          # steps a chunk of the chunked route covers
 
@@ -76,10 +81,11 @@ def _chunked_scratch(B: int, T: int, H: int, D: int,
 def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor,
               state0: Optional[torch.Tensor] = None):
-    """r/k/v/w: (B, T, H, D) of one dtype; u: (H, D) float32; state0:
-    (B, H, D, D) float32 or None (zeros).  All contiguous on one CUDA
-    device.  Runs on ``route``'s route.  Returns (out (B, T, H, D) in r's
-    dtype, state (B, H, D, D) float32, the route that ran)."""
+    """r/k/v/w: (B, T, H, D) of one dtype, any D >= 1; u: (H, D)
+    float32; state0: (B, H, D, D) float32 or None (zeros).  All contiguous
+    on one CUDA device.  Runs on ``route``'s route.  Returns (out (B, T,
+    H, D) in r's dtype, state (B, H, D, D) float32, the route that
+    ran)."""
     B, T, H, D = r.shape
     if r.dtype not in _DTYPES or any(t.dtype != r.dtype for t in (k, v, w)):
         raise TypeError(f"wkv6 kernel takes float32 or bfloat16 r/k/v/w of "
@@ -88,9 +94,8 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if u.dtype != torch.float32 or (state0 is not None
                                     and state0.dtype != torch.float32):
         raise TypeError("wkv6 kernel takes u and state0 in float32")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"wkv6 kernel is built for D in {HEAD_DIMS}, "
-                         f"got D={D}")
+    if D < 1:
+        raise ValueError(f"wkv6 kernel is built for D >= 1, got D={D}")
     if any(t.shape != r.shape for t in (k, v, w)) or u.shape != (H, D) or \
             (state0 is not None and state0.shape != (B, H, D, D)):
         raise ValueError(
@@ -103,7 +108,8 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         named.append(("state0", state0))
     check_on_card(named)
     for name, t in named:
-        if t.data_ptr() % 16:     # the kernel reads 16-byte vectors
+        # the kernels built for HEAD_DIMS read 16-byte vectors
+        if D in HEAD_DIMS and t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty_like(r)
     state = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)

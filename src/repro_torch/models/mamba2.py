@@ -9,7 +9,9 @@ a_t = exp(-softplus(dt_raw + bias) * exp(A_log)), input-dependent.
 The recurrence is a loop over time in eager PyTorch, as the reference's
 is a ``lax.scan`` (it has no kernel for it): the products that do not
 depend on the state are taken for a chunk of steps at once, and each step
-is one fused multiply-add on the float32 state.
+is one fused multiply-add on the float32 state (written into one buffer
+of the chunk's states when no gradient is recorded, else kept step by
+step for the backward).
 """
 from __future__ import annotations
 
@@ -82,9 +84,16 @@ def _ssd_scan(xs, Bm, Cm, a, dt, S):
         dBx = torch.einsum("btnp,bts,btn->tbnps", xs[:, part], Bm[:, part],
                            dt[:, part])
         decay = a[:, part].transpose(0, 1)[..., None, None]  # (t,B,nh,1,1)
-        states = torch.empty_like(dBx)
-        for t in range(dBx.shape[0]):
-            S = torch.addcmul(dBx[t], decay[t], S, out=states[t])
+        if torch.is_grad_enabled():      # training: out= has no gradient
+            steps = []
+            for t in range(dBx.shape[0]):
+                S = torch.addcmul(dBx[t], decay[t], S)
+                steps.append(S)
+            states = torch.stack(steps)
+        else:
+            states = torch.empty_like(dBx)
+            for t in range(dBx.shape[0]):
+                S = torch.addcmul(dBx[t], decay[t], S, out=states[t])
         ys.append(torch.einsum("tbnps,bts->btnp", states, Cm[:, part]))
     return torch.cat(ys, dim=1), S.clone()
 

@@ -6,6 +6,9 @@ optional MTP head.
 Parameters are ``nn.Module`` containers laid out like the reference's
 pytree; the forward passes are plain functions over them.  A Python loop
 over the layers takes the place of the reference's ``lax.scan``.
+``transformer_train`` is the training forward: no cache, the MoE aux
+summed, each layer optionally rematerialised (``torch.utils.checkpoint``,
+the counterpart of the reference's ``jax.checkpoint``).
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import GQA, MLA, gqa_forward, mla_forward
 from .common import ModelConfig, constant, rms_norm, swiglu, weight
@@ -86,17 +90,19 @@ class Transformer(nn.Module):
 
 
 def block_forward(p: Block, cfg: ModelConfig, x, positions, cache, lengths):
-    """Returns (x, new_cache)."""
+    """Returns (x, new_cache, aux): aux is a MoE FFN's load-balance loss,
+    a float32 zero for a dense FFN."""
     h = rms_norm(x, p.ln1, cfg.rms_eps)
     attend = mla_forward if cfg.mla else gqa_forward
     attn_out, new_cache = attend(p.attn, cfg, h, positions, cache, lengths)
     x = x + attn_out
     h = rms_norm(x, p.ln2, cfg.rms_eps)
     if isinstance(p.ffn, MoE):
-        f, _aux = moe_forward(p.ffn, cfg, h)
+        f, aux = moe_forward(p.ffn, cfg, h)
     else:
         f = swiglu(h, p.ffn.wi_gate, p.ffn.wi_up, p.ffn.wo)
-    return x + f, new_cache
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + f, new_cache, aux
 
 
 def _cache_slice(cache, i: int):
@@ -112,6 +118,38 @@ def _stack(per_layer):
     return tuple(torch.stack(c) for c in zip(*per_layer))
 
 
+def _embed(params: Transformer, cfg: ModelConfig, tokens_or_embeds):
+    if cfg.input_mode == "tokens":
+        return params.embed[tokens_or_embeds]
+    return tokens_or_embeds.to(cfg.dtype)
+
+
+def transformer_train(params: Transformer, cfg: ModelConfig,
+                      tokens_or_embeds, positions, remat: bool = True):
+    """The training forward (the reference's ``transformer_apply`` with no
+    cache): causal self-attention over the inputs, the MoE aux summed per
+    layer group and then over the groups.  With ``remat`` each layer runs
+    under ``torch.utils.checkpoint`` (non-reentrant), which keeps only its
+    input and recomputes the rest in the backward, as the reference's
+    ``jax.checkpoint`` does; values are the same either way.  Returns
+    (hidden, aux float32)."""
+    x = _embed(params, cfg, tokens_or_embeds)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layers in (params.dense_layers, params.moe_layers):
+        if not len(layers):
+            continue
+        auxs = []
+        for layer in layers:
+            if remat:
+                x, _, a = checkpoint(block_forward, layer, cfg, x, positions,
+                                     None, None, use_reentrant=False)
+            else:
+                x, _, a = block_forward(layer, cfg, x, positions, None, None)
+            auxs.append(a)
+        aux = aux + torch.stack(auxs).sum()
+    return rms_norm(x, params.ln_f, cfg.rms_eps), aux
+
+
 def transformer_apply(params: Transformer, cfg: ModelConfig,
                       tokens_or_embeds, positions,
                       caches: Optional[Dict] = None,
@@ -120,10 +158,7 @@ def transformer_apply(params: Transformer, cfg: ModelConfig,
     returns the new caches stacked per layer group ({"dense": ..., "moe":
     ...}, each GQA's (k, v) or MLA's latents); caches given: decode,
     writing the caches in place.  Returns (hidden, caches)."""
-    if cfg.input_mode == "tokens":
-        x = params.embed[tokens_or_embeds]
-    else:
-        x = tokens_or_embeds.to(cfg.dtype)
+    x = _embed(params, cfg, tokens_or_embeds)
     new_caches: Dict = {}
     for key, layers in (("dense", params.dense_layers),
                         ("moe", params.moe_layers)):
@@ -131,13 +166,13 @@ def transformer_apply(params: Transformer, cfg: ModelConfig,
             continue
         if caches is not None:
             for i, layer in enumerate(layers):
-                x, _ = block_forward(layer, cfg, x, positions,
-                                     _cache_slice(caches[key], i), lengths)
+                x, _, _ = block_forward(layer, cfg, x, positions,
+                                        _cache_slice(caches[key], i), lengths)
             new_caches[key] = caches[key]
         else:
             per_layer = []
             for layer in layers:
-                x, c = block_forward(layer, cfg, x, positions, None, None)
+                x, c, _ = block_forward(layer, cfg, x, positions, None, None)
                 per_layer.append(c)
             new_caches[key] = _stack(per_layer)
     return rms_norm(x, params.ln_f, cfg.rms_eps), new_caches
@@ -156,5 +191,5 @@ def mtp_logits(params: Transformer, cfg: ModelConfig, hidden, tokens):
     h = h.to(cfg.dtype) @ params.mtp.proj
     B, Tm1, _ = h.shape
     pos = torch.arange(Tm1, device=h.device)[None].expand(B, Tm1)
-    out, _ = block_forward(params.mtp.block, cfg, h, pos, None, None)
+    out, _, _ = block_forward(params.mtp.block, cfg, h, pos, None, None)
     return logits_from_hidden(params, cfg, out)

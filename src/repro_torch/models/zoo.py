@@ -2,6 +2,7 @@
 
     model = build_model(cfg)                  # on cuda; device="cpu" to opt out
     params = model.init(torch.Generator(device=model.device).manual_seed(0))
+    logits, aux = model.train_logits(params, tokens_or_embeds)
     logits, caches = model.prefill(params, inputs, lengths)
     caches = model.init_cache(batch, max_len)
     logits, caches = model.decode(params, caches, inputs, positions, lengths)
@@ -20,6 +21,10 @@ Families, each with the reference's cache layout:
                          float32), (k (n_apps, B, Hkv, S, hd), v))``, one
                          K/V slot per application
 ``decode`` writes the caches in place and returns the same tensors.
+``prefill`` and ``decode`` run without gradients; ``train_logits`` records
+them for whichever parameters require them (``Model.init`` leaves every
+parameter frozen; ``repro_torch.train`` turns gradients on for the module
+it trains).
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ from .mamba2 import Mamba2Block, mamba2_block, mamba_dims
 from .rwkv6 import RWKV6, rwkv6_block
 from .transformer import (Block, Transformer, block_forward,
                           logits_from_hidden, mtp_logits, stack_sizes,
-                          transformer_apply)
+                          transformer_apply, transformer_train)
 
 
 @dataclass(frozen=True)
@@ -43,10 +48,19 @@ class Model:
     cfg: ModelConfig
     device: torch.device
     init: Callable                  # (generator) -> params
+    train_logits: Callable          # (params, inputs, remat) -> (logits, aux)
     prefill: Callable               # (params, inputs, lengths) -> (logits, caches)
     decode: Callable                # (params, caches, inputs, positions, lengths)
     init_cache: Callable            # (batch, max_len) -> caches
     mtp_logits: Optional[Callable] = None   # (params, hidden, tokens)
+
+
+def _positions(B: int, T: int, device: torch.device) -> torch.Tensor:
+    return torch.arange(T, device=device)[None].expand(B, T)
+
+
+def _no_aux(device: torch.device) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=device)
 
 
 def _check_gen(gen: torch.Generator, device: torch.device) -> None:
@@ -59,11 +73,17 @@ def _build_transformer(cfg: ModelConfig, device: torch.device) -> Model:
         _check_gen(gen, device)
         return Transformer(cfg, gen)
 
+    def train_logits(params, inputs, remat: bool = True):
+        B, T = inputs.shape[0], inputs.shape[1]
+        h, aux = transformer_train(params, cfg, inputs,
+                                   _positions(B, T, device), remat=remat)
+        return logits_from_hidden(params, cfg, h), aux
+
     @torch.no_grad()
     def prefill(params, inputs, lengths):
         B, T = inputs.shape[0], inputs.shape[1]
-        pos = torch.arange(T, device=device)[None].expand(B, T)
-        h, caches = transformer_apply(params, cfg, inputs, pos)
+        h, caches = transformer_apply(params, cfg, inputs,
+                                      _positions(B, T, device))
         return logits_from_hidden(params, cfg, h[:, -1:]), caches
 
     @torch.no_grad()
@@ -92,8 +112,8 @@ def _build_transformer(cfg: ModelConfig, device: torch.device) -> Model:
         def mtp(params, hidden, tokens):  # noqa: F811
             return mtp_logits(params, cfg, hidden, tokens)
 
-    return Model(cfg, device, init, prefill, decode, init_cache,
-                 mtp_logits=mtp)
+    return Model(cfg, device, init, train_logits, prefill, decode,
+                 init_cache, mtp_logits=mtp)
 
 
 def _build_rwkv(cfg: ModelConfig, device: torch.device) -> Model:
@@ -103,6 +123,16 @@ def _build_rwkv(cfg: ModelConfig, device: torch.device) -> Model:
     def init(gen: torch.Generator) -> RWKV6:
         _check_gen(gen, device)
         return RWKV6(cfg, gen)
+
+    def train_logits(params, inputs, remat: bool = True):
+        """From the zero state, the head on every position; the reference
+        takes ``remat`` here and does not use it, nor does this."""
+        del remat
+        x = params.embed[inputs]
+        for layer in params.layers:
+            x, _state = rwkv6_block(layer, cfg, x, None)
+        h = rms_norm(x, params.ln_f, cfg.rms_eps)
+        return h @ params.head, _no_aux(device)
 
     @torch.no_grad()
     def prefill(params, inputs, lengths):
@@ -134,7 +164,8 @@ def _build_rwkv(cfg: ModelConfig, device: torch.device) -> Model:
                 torch.zeros((L, batch, 1, cfg.d_model), dtype=cfg.dtype,
                             device=device))
 
-    return Model(cfg, device, init, prefill, decode, init_cache)
+    return Model(cfg, device, init, train_logits, prefill, decode,
+                 init_cache)
 
 
 class Zamba2(nn.Module):
@@ -183,8 +214,8 @@ def _build_zamba(cfg: ModelConfig, device: torch.device) -> Model:
                 slot = i // every
                 cache = None if a_caches is None else \
                     (a_caches[0][slot], a_caches[1][slot])
-                x, kv = block_forward(params.shared, cfg, x, positions,
-                                      cache, lengths)
+                x, kv, _ = block_forward(params.shared, cfg, x, positions,
+                                         cache, lengths)
                 new_a.append(kv)
         h = rms_norm(x, params.ln_f, cfg.rms_eps)
         if a_caches is not None:
@@ -192,12 +223,27 @@ def _build_zamba(cfg: ModelConfig, device: torch.device) -> Model:
         return h, (tuple(torch.stack(s) for s in zip(*new_m)),
                    tuple(torch.stack(c) for c in zip(*new_a)))
 
+    def train_logits(params, inputs, remat: bool = True):
+        """The reference's ``"train"`` mode of ``_apply``: zero Mamba2
+        states, the shared block causal over the inputs, no cache kept;
+        ``remat`` is taken and not used, as in the reference."""
+        del remat
+        B, T = inputs.shape
+        pos = _positions(B, T, device)
+        x = params.embed[inputs]
+        for i, layer in enumerate(params.layers):
+            x, _state = mamba2_block(layer, cfg, x, None)
+            if (i + 1) % every == 0:
+                x, _kv, _ = block_forward(params.shared, cfg, x, pos, None,
+                                          None)
+        h = rms_norm(x, params.ln_f, cfg.rms_eps)
+        return h @ params.head, _no_aux(device)
+
     @torch.no_grad()
     def prefill(params, inputs, lengths):
         B, T = inputs.shape
-        pos = torch.arange(T, device=device)[None].expand(B, T)
-        h, caches = _apply(params, params.embed[inputs], None, None, pos,
-                           lengths)
+        h, caches = _apply(params, params.embed[inputs], None, None,
+                           _positions(B, T, device), lengths)
         return h[:, -1:] @ params.head, caches
 
     @torch.no_grad()
@@ -219,7 +265,8 @@ def _build_zamba(cfg: ModelConfig, device: torch.device) -> Model:
                 (torch.zeros(kv, dtype=cfg.dtype, device=device),
                  torch.zeros(kv, dtype=cfg.dtype, device=device)))
 
-    return Model(cfg, device, init, prefill, decode, init_cache)
+    return Model(cfg, device, init, train_logits, prefill, decode,
+                 init_cache)
 
 
 def cache_tensors(caches: Any) -> List[torch.Tensor]:

@@ -1,0 +1,124 @@
+"""The training step (PyTorch port of ``repro.train.step``): cross-entropy
+plus the MoE aux, gradients by autograd (accumulated in float32 over
+microbatches), then the AdamW update.
+
+    model = build_model(cfg)                              # on the card
+    state = init_train_state(model, torch.Generator(model.device)
+                             .manual_seed(0))
+    step = make_train_step(model, optim.OptConfig(...))
+    state, metrics = step(state, {"inputs": ..., "labels": ...})
+
+Two quirks of the reference are kept as they are: its loss has no
+multi-token-prediction term (``repro/train/step.py:52`` is a ``pass``),
+and with more than one microbatch ``metrics["ce"]`` holds the whole loss,
+MoE aux included, and there is no ``metrics["moe_aux"]``.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple, Tuple
+
+import torch
+from torch import nn
+
+from ..models.zoo import Model
+from . import optimizer as optim
+
+Batch = Dict[str, torch.Tensor]
+
+
+class TrainState(NamedTuple):
+    params: nn.Module       # trained in place, gradients on
+    opt: optim.OptState
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The mean over tokens of logsumexp(logits) minus the gold logit, in
+    float32."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - gold)
+
+
+def make_loss_fn(model: Model, aux_weight: float = 0.01
+                 ) -> Callable[[nn.Module, Batch], Tuple[torch.Tensor, Dict]]:
+    """(params, batch) -> (loss, {"ce", "moe_aux" for MoE configs}): the
+    cross-entropy of ``model.train_logits`` on ``batch["inputs"]`` against
+    ``batch["labels"]``, plus ``aux_weight`` times the MoE aux.  No MTP
+    term, as in the reference."""
+    cfg = model.cfg
+
+    def loss_fn(params: nn.Module, batch: Batch):
+        logits, aux = model.train_logits(params, batch["inputs"])
+        loss = cross_entropy(logits, batch["labels"])
+        metrics = {"ce": loss}
+        if cfg.moe:
+            loss = loss + aux_weight * aux
+            metrics["moe_aux"] = aux
+        return loss, metrics
+
+    return loss_fn
+
+
+def _backward(loss_fn, params: nn.Module, batch: Batch):
+    """The loss's gradient into every trained parameter's ``.grad`` (zeros
+    for a parameter the loss does not reach, as the reference's gradient
+    tree has).  Returns (loss, metrics) detached."""
+    for p in params.parameters():
+        p.grad = None
+    loss, metrics = loss_fn(params, batch)
+    loss.backward()
+    for p in params.parameters():
+        if p.requires_grad and p.grad is None:
+            p.grad = torch.zeros_like(p)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+
+
+def make_train_step(model: Model, opt_cfg: optim.OptConfig,
+                    num_microbatches: int = 1):
+    """(state, batch) -> (state, metrics {"ce", "moe_aux"?, "grad_norm",
+    "lr", "loss"}).  The batch's leading axis splits into
+    ``num_microbatches`` equal parts whose gradients add in float32 and
+    are divided by their count, as are their losses.  After the step
+    each parameter's ``.grad`` holds the gradient the update applied, in
+    the parameter's dtype."""
+    loss_fn = make_loss_fn(model)
+
+    def train_step(state: TrainState, batch: Batch):
+        params = state.params
+        named = dict(params.named_parameters())
+        if num_microbatches <= 1:
+            loss, metrics = _backward(loss_fn, params, batch)
+            grads = {n: p.grad for n, p in named.items()}
+        else:
+            acc = {n: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device) for n, p in named.items()}
+            total = torch.zeros((), dtype=torch.float32, device=model.device)
+            for i in range(num_microbatches):
+                part = {k: v.reshape(num_microbatches, -1, *v.shape[1:])[i]
+                        for k, v in batch.items()}
+                loss_i, _metrics = _backward(loss_fn, params, part)
+                for n, p in named.items():
+                    acc[n] += p.grad.float()
+                total = total + loss_i
+            grads = {n: a / num_microbatches for n, a in acc.items()}
+            for n, p in named.items():
+                p.grad = grads[n].to(p.dtype)
+            loss = total / num_microbatches
+            metrics = {"ce": loss}           # the reference's quirk
+        _params, opt, opt_metrics = optim.apply(opt_cfg, grads, state.opt,
+                                                named)
+        metrics = {**metrics, **opt_metrics, "loss": loss}
+        return TrainState(params, opt), metrics
+
+    return train_step
+
+
+def init_train_state(model: Model, gen: torch.Generator) -> TrainState:
+    """Parameters from ``model.init(gen)`` with gradients turned on (for
+    this module only: every other ``Model.init`` module stays frozen), and
+    the optimizer's state for them."""
+    params = model.init(gen)
+    params.requires_grad_(True)
+    return TrainState(params=params,
+                      opt=optim.init(dict(params.named_parameters())))

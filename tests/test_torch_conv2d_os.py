@@ -85,15 +85,13 @@ def test_smem_plan_matches_the_source():
     (dict(w_shape=(11, 3, 4, 8)), ValueError, "shapes"),
     (dict(w_shape=(3, 3, 4)), ValueError, "shapes"),
     (dict(w_shape=(3, 3, 4, 0)), ValueError, "nonempty"),
-    (dict(x_shape=(1, 40, 40, 4), w_shape=(11, 11, 4, 8)), ValueError,
-     "shared memory"),
     (dict(), ValueError, "CUDA device"),
 ])
 def test_conv2d_os_kernel_rejects(change, error, match):
     """The kernel's wrapper refuses what the kernel does not take, before
     it builds or launches anything: another dtype, mismatched shapes, taps
-    larger than the image or than shared memory holds, or tensors off the
-    card (CPU tensors here)."""
+    larger than the image, empty channels, or tensors off the card (CPU
+    tensors here)."""
     x = torch.ones(change.get("x_shape", (2, 9, 9, 4)))
     w = torch.ones(change.get("w_shape", (3, 3, 4, 8)))
     x = x.to(change.get("x", torch.float32))
@@ -172,3 +170,43 @@ def test_conv2d_os_main_path_blocks():
     (th, tw), bco = r.tile, r.block_co
     assert 32 * cdiv(64, th) * cdiv(64, tw) * cdiv(64, bco) == 512
     assert 2 * (r.smem + 1024) <= 233472    # an SM's shared memory
+
+
+@pytest.mark.parametrize("KH,KW", [(11, 11), (16, 16), (1, 88), (40, 3),
+                                   (33, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv2d_os_route_streams_taps_past_shared_memory(KH, KW, dtype):
+    """Taps whose SIMT block would not fit in shared memory (11 x 11 and
+    larger) go to the streaming route when the tensor-core route does not
+    take them (float32, or Cin not a multiple of 8), with a block of one
+    fixed size within a block's shared memory, whatever the taps."""
+    assert kmod.smem_bytes(KH, KW) > kmod.MAX_SMEM
+    r = kmod.route(13, 64, KH, KW, dtype)
+    assert r.kind == "stream" and r.tile == (16, 16) and r.block_co == 64
+    assert r.smem == kmod.stream_smem_bytes() == \
+        4 * (16 * 31 * 8 + 16 * 8 * 64) <= 48 * 1024
+
+
+@pytest.mark.parametrize("x_shape,w_shape", [
+    ((1, 40, 40, 4), (11, 11, 4, 8)),        # taps past shared memory
+    ((65536, 4, 4, 8), (3, 3, 8, 16)),       # a batch past grid.z
+])
+def test_conv2d_os_kernel_takes_any_taps_and_batch(x_shape, w_shape):
+    """Neither a batch past 65535 images nor taps past a SIMT block's
+    shared memory is refused: the wrapper's only objection to these CPU
+    tensors is that they are not on the card."""
+    x, w = torch.zeros(x_shape), torch.zeros(w_shape)
+    with pytest.raises(ValueError, match="CUDA device"):
+        conv2d_os_cuda(x, w)
+
+
+def test_conv2d_os_large_taps_plain_matches_jax():
+    """The plain version at taps that need the streaming route (12 x 11,
+    Cin 3) against JAX's ``conv2d_ref``: what the streaming kernel is held
+    to on the card."""
+    x, w = _inputs(2, 20, 19, 3, 5, 12, seed=21)
+    w = w[:, :11]
+    got = conv2d_ref(torch.from_numpy(x), torch.from_numpy(np.ascontiguousarray(w)))
+    want = jax_ref(jnp.asarray(x), jnp.asarray(w))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)

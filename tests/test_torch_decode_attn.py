@@ -196,3 +196,43 @@ def test_plan_counts_group_tiles():
         kmod.split_plan(8, 6, 2048, 128, torch.float32, 132)
     assert kmod.plan("tensor_core", 8, 8, 4, 2048, 64, torch.bfloat16,
                      132) == (4, 512)       # llama3.2-1b serving, unchanged
+
+
+@pytest.mark.parametrize("D", [80, 96, 256, 1, 300])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attn_route_any_head_dim(D, dtype):
+    """Head_dims the vector kernels are not built for go to the SIMT route
+    (its any-D kernel), aligned or not, and the wrapper refuses them only
+    for not being on the card; the split plan walks the any-D kernel's
+    rows, one a warp."""
+    assert D not in kmod.HEAD_DIMS
+    assert kmod.route(D, 4, dtype, True) == kmod.route(D, 4, dtype, False) \
+        == "simt"
+    splits, chunk = kmod.split_plan(8, 8, 600, D, dtype, n_sms=132)
+    assert chunk % kmod._ANY_ROWS == 0 and splits * chunk >= 600 > \
+        (splits - 1) * chunk
+    q = torch.zeros(1, 2, 4, D, dtype=dtype)
+    kv = torch.zeros(1, 2, 40, D, dtype=dtype)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kmod.decode_attn_cuda(q, kv, kv, torch.full((1,), 40, dtype=torch.int32),
+                              1.0)
+
+
+@pytest.mark.parametrize("D", [80, 96])
+def test_decode_attn_any_head_dim_matches_jax(D):
+    """q (1, 4, D) against a 40-row cache: the port's plain version (what
+    the any-D kernel is held to on the card) equals the reference's
+    Pallas kernel in interpret mode and its plain version."""
+    q, k, v, lens = _inputs(1, 4, 2, 40, D, seed=D)
+    lens = np.array([33], np.int32)
+    got = decode_attn(torch.from_numpy(q), torch.from_numpy(k),
+                      torch.from_numpy(v), torch.from_numpy(lens))
+    want = jax_decode_attn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           jnp.asarray(lens), interpret=True)
+    assert got.shape == (1, 4, D)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jax_ref(*(jnp.asarray(x)
+                                          for x in (q, k, v, lens)))),
+        rtol=TOL, atol=TOL)

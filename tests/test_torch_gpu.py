@@ -1047,3 +1047,205 @@ def test_new_family_card_matches_cpu(arch_id, monkeypatch):
         (1 + 3) * (cfg.n_layers - cfg.first_k_dense) if cfg.moe else 0)
     for (idx, keep), (want_idx, want_keep) in zip(card_routes, cpu_routes):
         assert torch.equal(idx, want_idx) and torch.equal(keep, want_keep)
+
+
+# ---- shapes the fast kernels are not built for (any head_dim, any K, any
+# batch and taps): each on its route, held against its plain version.
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [80, 96, 256, 300])
+@pytest.mark.parametrize("G", [1, 4])
+def test_decode_attn_any_head_dim_matches_plain(G, D, dtype):
+    """Head_dims outside the vector kernels' set run on the SIMT route's
+    any-D kernel (D 300: two passes of 256 columns), with a row of length
+    0 and S 600; tolerances as in test_decode_attn_kernel_matches_plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(D + G)
+    B, Hkv, S = 4, 2, 600
+    q = rng.normal(size=(B, Hkv * G, D))
+    k = rng.normal(size=(B, Hkv, S, D))
+    v = rng.normal(size=(B, Hkv, S, D))
+    lens = np.array([0, 1, 333, S], np.int32)
+    args = [torch.from_numpy(a).to("cuda", dtype) for a in (q, k, v)]
+    args.append(torch.from_numpy(lens).cuda())
+    assert attn_route(D, G, dtype) == "simt"
+    before = decode_attn.launches_by_route["simt"]
+    got = decode_attn(*args)
+    torch.cuda.synchronize()
+    assert decode_attn.launches_by_route["simt"] == before + 1
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), decode_attn_ref(*args).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [80, 256, 400])
+@pytest.mark.parametrize("T", [16, 256])
+def test_wkv6_any_head_size_matches_plain(T, D, dtype):
+    """Head sizes outside the fast kernels' set on both routes (T 16 on
+    step, T 256 on chunked), from a nonzero state0 and from zeros; D 400
+    keeps its state columns in the output instead of shared memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    r, k, v, w, u, s0 = _wkv6_inputs(2, T, 2, D, dtype, seed=D + T)
+    kind = wkv6_route(2, T, 2, D)
+    assert kind == ("chunked" if T >= CHUNK_T else "step")
+    before = wkv6.launches_by_route[kind]
+    got = wkv6(r, k, v, w, u, s0)
+    got0 = wkv6(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert wkv6.launches_by_route[kind] == before + 2
+    _wkv6_close(got, wkv6_ref(r, k, v, w, u, s0), dtype)
+    _wkv6_close(got0, wkv6_ref(r, k, v, w, u), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [16, 128])
+@pytest.mark.parametrize("D", [64, 80])
+def test_wkv6_gradients_match_autograd_through_plain(D, T):
+    """The autograd Function around the kernel: its gradients of r, k, v,
+    w, u and state0 against autograd through ``wkv6_ref``, float32, 1e-4.
+    Its backward is that same autograd, so this holds the Function's
+    plumbing; ``test_rwkv6_train_gradients_kernel_match_plain`` holds the
+    gradients the kernel's forward leads to."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    ins = [t.requires_grad_() for t in
+           _wkv6_inputs(2, T, 2, D, torch.float32, seed=T + D)]
+    rng = np.random.default_rng(1)
+    g_out = torch.from_numpy(rng.normal(size=(2, T, 2, D))).float().cuda()
+    g_state = torch.from_numpy(rng.normal(size=(2, 2, D, D))).float().cuda()
+
+    def grads(fn):
+        out, state = fn(*ins)
+        return torch.autograd.grad([out, state], ins, [g_out, g_state])
+
+    before = wkv6.launches
+    got = grads(wkv6)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 1
+    for g, want in zip(got, grads(wkv6_ref)):
+        torch.testing.assert_close(g, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_model,n_heads", [(64, 4), (160, 2)],
+                         ids=["D16", "D80"])
+def test_rwkv6_train_gradients_kernel_match_plain(d_model, n_heads):
+    """One rwkv6 loss.backward at reduced() depth in float32 (TF32 off),
+    B 2 x T 128 (the chunked route), with ``wkv6`` on the kernel against
+    the same with ``wkv6_ref`` in its place: loss within 1e-4 relative and
+    every parameter's gradient within 1e-4 of its tensor's largest |g|.
+    Head size 16 runs the instantiated kernels, 80 the any-D kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+    from unittest import mock
+
+    import repro_torch.models.rwkv6 as rwkv6_mod
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train.step import make_loss_fn
+
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b").reduced(),
+                              d_model=d_model, n_heads=n_heads)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    params.requires_grad_(True)
+    rng = np.random.default_rng(5)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 128))).cuda()
+             for k in ("inputs", "labels")}
+    loss_fn = make_loss_fn(model)
+
+    def step():
+        for p in params.parameters():
+            p.grad = None
+        loss, _ = loss_fn(params, batch)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in params.named_parameters()
+                             if p.grad is not None}
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        before = dict(wkv6.launches_by_route)
+        k_loss, k_grads = step()
+        assert wkv6.launches_by_route["chunked"] - before["chunked"] == \
+            cfg.n_layers
+        with mock.patch.object(rwkv6_mod, "wkv6", wkv6_ref):
+            p_loss, p_grads = step()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert abs(k_loss - p_loss) <= 1e-4 * abs(p_loss)
+    assert k_grads.keys() == p_grads.keys()
+    assert "layers.0.u" in p_grads
+    for name, want in p_grads.items():
+        err = (k_grads[name] - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fill", [-128, None], ids=["all_min", "random"])
+def test_qgemm_int8_past_k_limit_bit_exact(fill):
+    """K 140000, past K_MAX, on the SIMT route's wrapping instantiation:
+    all -128 gives K * 16384 wrapped to int32 (-2001207296) times the
+    scales, and random inputs equal the plain version bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    M, K, N = 8, 140000, 16
+    if fill is None:
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        a = torch.randint(-128, 128, (M, K), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        b = torch.randint(-128, 128, (K, N), generator=gen, device="cuda",
+                          dtype=torch.int8)
+    else:
+        a = torch.full((M, K), fill, dtype=torch.int8, device="cuda")
+        b = torch.full((K, N), fill, dtype=torch.int8, device="cuda")
+    sa = torch.linspace(0.5, 2, M, device="cuda")
+    sb = torch.linspace(0.25, 1, N, device="cuda")
+    assert qgemm_route(M, K, N) == "simt"
+    before = qgemm_int8.launches_by_route["simt"]
+    got = qgemm_int8(a, b, sa, sb)
+    torch.cuda.synchronize()
+    assert qgemm_int8.launches_by_route["simt"] == before + 1
+    assert torch.equal(got, qgemm_ref(a, b, sa, sb))
+    if fill is not None:
+        want = (torch.full((M, N), -2001207296.0, device="cuda")
+                * sa[:, None]) * sb[None, :]
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,H,W,Cin,Cout,KH,KW,want", [
+    (65536, 4, 4, 8, 16, 3, 3, None),     # a batch past grid.z
+    (2, 30, 28, 13, 70, 12, 11, "stream"),  # taps past shared memory
+    (1, 20, 100, 3, 8, 1, 90, "stream"),
+])
+def test_conv2d_os_any_batch_and_taps_matches_plain(N, H, W, Cin, Cout, KH,
+                                                   KW, want, dtype):
+    """A batch of 65536 images (two launches in one C call) and taps whose
+    SIMT block would not fit in shared memory (the streaming route), each
+    on the route the rule gives, held to the plain version within the
+    Table-I tolerance of its dtype."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(N + KH * KW)
+    x = _card(rng.normal(size=(N, H, W, Cin)), dtype)
+    w = _card(rng.normal(size=(KH, KW, Cin, Cout)) / np.sqrt(KH * KW * Cin),
+              dtype)
+    kind = conv_route(Cin, Cout, KH, KW, dtype).kind
+    assert want is None or kind == want
+    before = conv2d_os.launches_by_route[kind]
+    got = conv2d_os(x, w)
+    torch.cuda.synchronize()
+    assert conv2d_os.launches_by_route[kind] == before + 1
+    assert got.shape == (N, H - KH + 1, W - KW + 1, Cout)
+    rtol, atol = TABLE1_TOL[dtype]
+    torch.testing.assert_close(got.float(), conv2d_ref(x, w).float(),
+                               rtol=rtol, atol=atol)

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of repro_torch, not chip_smoke.py and
-no examples/*_torch.py imports JAX or the JAX package; importing the
+"""The port stands alone: no module of repro_torch, not chip_smoke.py, no
+examples/*_torch.py and no benchmarks/*_torch.py imports JAX or the JAX
+package; importing the
 serving engine or the kernel path (the Table-I kernels' ops and the
 micro-benchmark) loads neither; and the flow's tools (isa, check, dse,
 dist), which fleet worker processes import, load not even torch."""
@@ -13,7 +14,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py")) \
+    + sorted((ROOT / "benchmarks").glob("*_torch.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

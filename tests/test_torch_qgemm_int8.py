@@ -117,23 +117,66 @@ def test_requantize_ref_matches_jax(mult, shift, qmin, qmax):
 
 
 def test_qgemm_int8_k_too_large_is_refused():
-    """K past (2^31 - 1) / 128^2 could wrap the int32 accumulator: refused
-    on the CPU route as on the card's.  At the limit, every a and b at -128
-    sums to K * 128^2, the largest the accumulator must hold, and it holds
-    it exactly."""
+    """K past (2^31 - 1) / 128^2, where the int32 accumulator can wrap, is
+    no longer refused: on the CPU route as on the card's the int32 sums
+    wrap as the reference's do.  At K_MAX + 1 with every a and b at -128
+    the sum is (K_MAX + 1) * 128^2 = 2^31 + 16368, which wraps to its low
+    32 bits; at K_MAX it is the largest sum that does not wrap, held
+    exactly.  The card's wrapper refuses these CPU tensors only for not
+    being on the card."""
     assert K_MAX == 131071 and K_MAX * 128 ** 2 <= 2 ** 31 - 1 \
         < (K_MAX + 1) * 128 ** 2
     K = K_MAX + 1
     a = torch.full((1, K), -128, dtype=torch.int8)
     b = torch.full((K, 1), -128, dtype=torch.int8)
-    with pytest.raises(ValueError, match="wrap"):
-        qgemm_int8(a, b, torch.ones(1), torch.ones(1))
-    with pytest.raises(ValueError, match="wrap"):
+    wrapped = K * 128 ** 2 - 2 ** 32
+    assert int_matmul_ref(a, b).item() == wrapped
+    assert qgemm_int8(a, b, torch.ones(1), torch.ones(1)).item() == \
+        float(wrapped)
+    want = jax_ref(jnp.asarray(a.numpy()), jnp.asarray(b.numpy()),
+                   jnp.ones(1), jnp.ones(1))
+    assert float(np.asarray(want)[0, 0]) == float(wrapped)
+    with pytest.raises(ValueError, match="CUDA device"):
         qgemm_int8_cuda(a, b, torch.ones(1), torch.ones(1))
     a, b = a[:, :K_MAX], b[:K_MAX]
     assert int_matmul_ref(a, b).item() == K_MAX * 128 ** 2
     assert qgemm_int8(a, b, torch.ones(1), torch.ones(1)).item() == \
         float(K_MAX * 128 ** 2)
+
+
+@pytest.mark.parametrize("fill", [-128, None], ids=["all_min", "random"])
+def test_qgemm_int8_any_k_matches_jax_word_for_word(fill):
+    """At K 140000, past K_MAX, the port equals the reference's
+    ``qgemm_ref`` word for word, wraps included: all -128 gives K * 16384
+    wrapped to int32, -2001207296, times the scales; random int8 inputs
+    (whose sums need not wrap) match too."""
+    M, K, N = 3, 140000, 5
+    rng = np.random.default_rng(7)
+    if fill is None:
+        a = rng.integers(-128, 128, (M, K)).astype(np.int8)
+        b = rng.integers(-128, 128, (K, N)).astype(np.int8)
+    else:
+        a = np.full((M, K), fill, np.int8)
+        b = np.full((K, N), fill, np.int8)
+    sa = rng.uniform(0.5, 2, M).astype(np.float32)
+    sb = rng.uniform(0.5, 2, N).astype(np.float32)
+    want = np.asarray(jax_ref(*(jnp.asarray(x) for x in (a, b, sa, sb))))
+    got = qgemm_int8(*(torch.from_numpy(x) for x in (a, b, sa, sb)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    if fill is not None:
+        assert int_matmul_ref(torch.from_numpy(a), torch.from_numpy(b))[0, 0] \
+            .item() == -2001207296
+
+
+def test_qgemm_int8_route_past_k_max_is_simt():
+    """K past K_MAX runs on the SIMT kernel's wrapping instantiation, even
+    where the tensor-core route would take the shape; up to K_MAX the
+    tensor-core route keeps every shape it took."""
+    K = K_MAX // 16 * 16
+    assert kmod.route(64, K, 64) == "tensor_core"
+    assert kmod.route(64, K + 16 * 32, 64) == "simt"
+    assert kmod.route(8, 140000, 16) == "simt"
+    assert not hasattr(kmod, "check_k")
 
 
 def test_qgemm_int8_other_device_raises():

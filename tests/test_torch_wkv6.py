@@ -94,15 +94,16 @@ def test_wkv6_bf16_output_rounds_once():
     (dict(k=torch.bfloat16), TypeError, "one dtype"),
     (dict(u=torch.bfloat16), TypeError, "u and state0 in float32"),
     (dict(state0=torch.bfloat16), TypeError, "u and state0 in float32"),
-    (dict(D=8), ValueError, "built for D"),
+    (dict(D=0), ValueError, "built for D"),
     (dict(v_shape=(2, 5, 3, 16)), ValueError, "shapes"),
     (dict(state0_shape=(2, 3, 16, 8)), ValueError, "shapes"),
     (dict(), ValueError, "CUDA device"),
 ])
 def test_wkv6_kernel_rejects(change, error, match):
     """The kernel's wrapper refuses what the kernel does not take: another
-    dtype or D, mismatched shapes, or tensors off the card (CPU tensors
-    here), before it builds or launches anything."""
+    dtype, an empty head (D 0; every D >= 1 runs), mismatched shapes, or
+    tensors off the card (CPU tensors here), before it builds or launches
+    anything."""
     B, T, H = 2, 6, 3
     D = change.get("D", 16)
     r, k, v, w, u, s0 = (torch.from_numpy(a) for a in
@@ -205,3 +206,32 @@ def test_wkv6_counts_launches_by_route():
     before = dict(wkv6.launches_by_route), wkv6.launches
     wkv6(*(torch.from_numpy(a) for a in _inputs(1, 200, 2, 16, 3)))
     assert (dict(wkv6.launches_by_route), wkv6.launches) == before
+
+
+@pytest.mark.parametrize("D", [8, 80, 96, 256])
+@pytest.mark.parametrize("T", [16, 256])
+def test_wkv6_kernel_takes_any_head_size(D, T):
+    """Head sizes the fast kernels are not built for are no longer refused
+    (both routes run them on the any-D kernel): the wrapper's only
+    objection to these CPU tensors is that they are not on the card, and
+    the route is the one T gives."""
+    r, k, v, w, u, s0 = (torch.from_numpy(a) for a in
+                         _inputs(1, T, 2, D, 0, state=True))
+    assert D not in kmod.HEAD_DIMS
+    assert kmod.route(1, T, 2, D) == ("chunked" if T >= kmod.CHUNK_T
+                                      else "step")
+    with pytest.raises(ValueError, match="CUDA device"):
+        wkv6_cuda(r, k, v, w, u, s0)
+
+
+@pytest.mark.parametrize("D", [80, 96])
+def test_wkv6_ref_any_head_size_matches_jax(D):
+    """The plain version, which the any-D kernel is held to on the card,
+    against JAX's ``wkv6_ref`` at head sizes 80 and 96, plain and
+    chunked."""
+    arrays = _inputs(2, 70, 2, D, 3, state=True)
+    want, ws = jax_ref(*(jnp.asarray(a) for a in arrays))
+    for fn in (wkv6_ref, wkv6_chunked_ref):
+        got, gs = fn(*(torch.from_numpy(a) for a in arrays))
+        _close(got, want)
+        _close(gs, ws)
