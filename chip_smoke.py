@@ -62,9 +62,10 @@
    dead-mutant probe on the card equal to the CPU's for every
    config-layer mutant class; (c) verify_batch under MORPHER_CHECK=1 and
    MORPHER_XVAL=1, and a corrupt artifact refused by the check gate
-   before anything simulates; (d) the tiny design-space sweep cold,
-   warm, resumed from its checkpoint and through a 2-worker compile fleet
-   (whose workers must not have initialised CUDA), each
+   before anything simulates; (d) the tiny design-space sweep cold (its
+   compiles fanned out through the supervised compile fleet, whose
+   workers must not have initialised CUDA; bench_dse_sweep's rows taken
+   from it), warm and resumed from its checkpoint, each
    dse_frontier.json byte-equal to the committed
    benchmarks/results/after/dse_frontier_tiny.json; (e) an NSGA-II search
    verifying on the card, its frontier byte-equal to the CPU's.  Prints
@@ -127,7 +128,9 @@
    (phase_train): losses finite and falling, ms a step, tokens/s, peak
    GiB, the rwkv6 step's split between kernel and recomputing backward;
    every wkv6 call of one rwkv6 training forward held against the plain
-   version (in float64) on the inputs the model made.  Then both at full
+   version (in float64) on the inputs the model made; one more step of
+   each counted by repro_torch.roofline.hlo's cost_terms on the card's
+   tensors gives the achieved share of 989 TFLOP/s.  Then both at full
    size in float32 (phase_train_grads): llama3.2-1b's 2-microbatch
    gradients against the whole batch's, rwkv6's gradients with the wkv6
    kernel against those with the plain recurrence in its place, 1e-4.
@@ -136,10 +139,32 @@
    and gradients within 1e-4, MoE choices equal; and the wkv6
    autograd Function's gradients against autograd through the plain
    recurrence (its plumbing: its backward is that same autograd).
-13. Prints each phase's seconds, the kernels as one JSON line (launches:
+13. Checkpointing (phase_checkpoint): examples/train_lm_torch.py at its
+   defaults (~88 M float32 parameters, B 8 x T 128, 200 steps, a
+   checkpoint every 50) as a subprocess under deterministic algorithms,
+   uninterrupted and, alongside it, killed after logging step 120, then
+   resumed: the
+   resumed run's logged lines and its final checkpoint's arrays equal the
+   uninterrupted run's bit for bit.  Then rwkv6-1.6b at full width cut to
+   2 of 24 layers (B 2 x T 256, wkv6 on chunked): two steps, an async
+   save timed under the third step, a restore into a fresh state equal to
+   the snapshot word for word, whose next step's loss equals the live
+   state's bit for bit and its gradients within 1e-4 of max|g|.
+14. The launch dry run (phase_dryrun): python -m
+   repro_torch.launch.dryrun on llama3.2-1b decode_32k and python -m
+   repro_torch.roofline.run on llama3.2-1b and rwkv6-1.6b train_4k, on
+   the fake 16x16 mesh of fake tensors of the card's type: exit 0, every
+   record ok.
+Steps 4 and 5 run in a second process on the same card (this script
+with --cgra-process), started once step 3 has taken the kernels' times
+and running alongside steps 6-14: they are bound by the host thread and
+the compile pool, and leave the card idle most of the time.  Step 14's
+subprocesses run alongside step 13.  Past 1140 s the run prints every
+thread's stack, stops its child processes and exits 1.
+15. Prints each phase's seconds, the kernels as one JSON line (launches:
    the sums over the serving paths of steps 6-8 and the kernel path; the
    wkv6 entry at the training shape, "path": "train", the training
-   runs'),
+   runs' and phase_checkpoint's rwkv6 steps'),
    the card's name and power limit, and as its last line
    {"ok": true, "device": {...}}.
 
@@ -148,6 +173,7 @@ Any failure exits nonzero; without a card it exits 1 before doing work.
 """
 from __future__ import annotations
 
+import faulthandler
 import filecmp
 import gc
 import hashlib
@@ -158,6 +184,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from collections import deque
 from unittest import mock
@@ -287,6 +314,30 @@ TRAIN_CARD_CPU_REL = 1e-4
 WKV6_GRAD_CASES = ((64, 16), (64, 128), (80, 16), (80, 128))
 TINY_FRONTIER = os.path.join(ROOT, "benchmarks", "results", "after",
                              "dse_frontier_tiny.json")
+# phase_checkpoint (a): examples/train_lm_torch.py at its defaults (~88 M
+# float32 parameters, B 8 x T 128, 200 steps, a checkpoint every 50),
+# uninterrupted, killed once it has logged step CKPT_CUT (and the
+# checkpoint before it is on disk), then resumed; under deterministic
+# algorithms, so the resumed run equals the uninterrupted one bit for bit
+CKPT_STEPS = 200
+CKPT_CUT = 120
+CKPT_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+# (b): rwkv6-1.6b at full width cut to CKPT_RWKV_LAYERS of 24 layers,
+# B 2 x T 256 (wkv6 on the chunked route), two steps, an async save timed
+# under the third step, a restore into a fresh state
+CKPT_RWKV_LAYERS = 2
+# phase_dryrun: the launch dry run and the roofline, as subprocesses
+DRYRUN_CELL = ("llama3.2-1b", "decode_32k")
+ROOFLINE_CELLS = ("llama3.2-1b:train_4k", "rwkv6-1.6b:train_4k")
+# The argument that makes this script the CGRA process (phase_cgra and
+# phase_cgra_tools), which the run starts alongside its other phases
+CGRA_PROCESS_FLAG = "--cgra-process"
+# Past this many seconds the run dumps every thread's stack, stops its
+# children and exits 1: under the 1200 s that a caller allows it
+WATCHDOG_S = 1140
+# child processes this run started (the CGRA process, the dry runs, the
+# train_lm_torch runs), stopped if the run fails or hangs
+_CHILDREN: list = []
 
 
 def card_line() -> str:
@@ -1996,7 +2047,8 @@ def phase_cgra(card: str) -> dict:
 
     from repro_torch.bench import (OPS, RF_COHORT, VERIFY_SEEDS,
                                    bench_sim_throughput,
-                                   bench_verify_batched, rf_cohort_arch)
+                                   bench_verify_batched, rf_cohort_arch,
+                                   share_verification_toolchain)
     from repro_torch.core import simcache, table1_kernels
     from repro_torch.core.pool import reset_pool
     from repro_torch.core.refexec import reference_execute_torch
@@ -2015,6 +2067,7 @@ def phase_cgra(card: str) -> dict:
         # 1. compile the verification set on the host
         specs = {**table1_kernels(small=True), **dsl_kernels()}
         tc = Toolchain(cache_dir="")
+        share_verification_toolchain(tc)     # the bench rows' set too
         cks = {}
         for name in CGRA_SET:
             t0 = time.perf_counter()
@@ -2209,13 +2262,13 @@ def phase_cgra_tools(card: str, cks: dict) -> None:
     """The flow's tools (repro_torch.isa, check, dist, dse) on the card,
     over phase_cgra's compiled verification set: instruction streams and
     the interpreter, the static checker and its mutation gate, the verify
-    gates, the tiny design-space sweep (cold, warm, resumed, through a
-    2-worker fleet) and a search.  Raises on any mismatch."""
+    gates, the tiny design-space sweep (cold through the compile fleet,
+    warm, resumed) and a search.  Raises on any mismatch."""
     import dataclasses
 
     from repro_torch.bench import (OPS, SEARCH_KERNELS, bench_check_static,
-                                   bench_dse_search, bench_dse_sweep,
-                                   bench_isa_export)
+                                   bench_dse_search, bench_isa_export,
+                                   dse_sweep_rows)
     from repro_torch.check import check_kernel, report_json
     from repro_torch.check.mutate import (CLASSES, MIN_SCORE, _probe_dead,
                                           mutate_one, mutation_gate)
@@ -2358,7 +2411,7 @@ def phase_cgra_tools(card: str, cks: dict) -> None:
         print(f"[tools] step c a corrupt GEMM ({desc}) refused by "
               "MORPHER_CHECK=1 (CFG-STORE-WINDOW) before any simulation")
 
-        # (d) the tiny sweep: cold, warm, resumed, through the fleet
+        # (d) the tiny sweep: cold through the fleet, warm, resumed
         dse = os.path.join(out, "dse")
         ckpt = os.path.join(dse, "checkpoint.json")
 
@@ -2372,37 +2425,39 @@ def phase_cgra_tools(card: str, cks: dict) -> None:
             write_artifacts(res, os.path.join(dse, label), space="tiny")
             _same_file(os.path.join(dse, label, "dse_frontier.json"),
                        TINY_FRONTIER, f"the {label} sweep's frontier")
-            return sweep_tc, dt
+            return sweep_tc, dt, res
 
-        _, dt = sweep("cold", "cache", checkpoint=ckpt)
+        # The one cold sweep: its compiles fan out through the
+        # supervised fleet (compile_many's default jobs), and it gives
+        # bench_dse_sweep's rows (repro_torch.bench.dse_sweep_rows)
+        cold_tc, dt, cold = sweep("cold", "cache", checkpoint=ckpt)
+        report = cold_tc.last_fleet_report
+        if report is None or report.sequential:
+            raise AssertionError("the cold sweep's compiles did not fan "
+                                 "out through the fleet")
+        if not torch.cuda.is_initialized():
+            raise AssertionError("CUDA is not initialised in the parent")
+        states = run_fleet(_worker_cuda_state, list(range(4)),
+                           FleetConfig(groups=2)).results
+        if states is None or any(states):
+            raise AssertionError(f"fleet workers' CUDA state: {states}")
         _tools_step("d", "cold tiny sweep (4 variants x 10 kernels, "
-                    "compiled on the host, verified on the card), "
+                    "compiled on the host through the supervised compile "
+                    "fleet, CUDA initialised in the parent and not in the "
+                    "workers of a 2-group fleet; verified on the card), "
                     "frontier byte-equal to the committed one", dt, card)
-        _, dt = sweep("warm", "cache")
+        rows = dse_sweep_rows(cold, dt)
+        print(f"[tools] step d {json.dumps(rows[0])}")
+        _, dt, _ = sweep("warm", "cache")
         _tools_step("d", "warm tiny sweep, frontier byte-equal", dt, card)
         with open(ckpt) as f:
             d = json.load(f)
         del d["variants"][get_space("tiny")[-1].name]
         with open(ckpt, "w") as f:
             json.dump(d, f)
-        _, dt = sweep("resumed", "cache", checkpoint=ckpt)
+        _, dt, _ = sweep("resumed", "cache", checkpoint=ckpt)
         _tools_step("d", "tiny sweep resumed from a checkpoint missing "
                     "its last variant, frontier byte-equal", dt, card)
-        if not torch.cuda.is_initialized():
-            raise AssertionError("CUDA is not initialised in the parent")
-        fleet_tc, dt = sweep("fleet", "cache_fleet", jobs=2)
-        report = fleet_tc.last_fleet_report
-        if report is None or report.sequential:
-            raise AssertionError("the jobs=2 sweep did not fan out")
-        states = run_fleet(_worker_cuda_state, list(range(4)),
-                           FleetConfig(groups=2)).results
-        if states is None or any(states):
-            raise AssertionError(f"fleet workers' CUDA state: {states}")
-        _tools_step("d", "cold tiny sweep through compile_many(jobs=2) "
-                    "(a 2-worker fleet, CUDA initialised in the parent, "
-                    "not in the workers), frontier byte-equal", dt, card)
-        rows = bench_dse_sweep(dev)
-        print(f"[tools] step d {json.dumps(rows[0])}")
         with open(os.path.join(os.path.dirname(TINY_FRONTIER),
                                "BENCH_dse_sweep.json")) as f:
             committed = {r["name"]: r for r in json.load(f)["rows"]}
@@ -2756,10 +2811,36 @@ def phase_train(card: str) -> dict:
         if cfg.family == "ssm":
             _train_wkv6_held(model, state, batch, card)
             _train_split(model, state, batch, card)
+        _counted_step(model, state, batch, ms, card)
         del state, step, model, batch
         gc.collect()
         torch.cuda.empty_cache()
     return launches
+
+
+def _counted_step(model, state, batch, ms: float, card: str) -> None:
+    """One more training step counted by repro_torch.roofline.hlo's
+    TraceCounter on the card's own tensors (each op's flops, and each
+    kernel's by its formula): the achieved share of the card's 989e12
+    bf16 FLOP/s at the measured ``ms`` a step."""
+    from repro_torch.roofline.hlo import TraceCounter, cost_terms
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train.step import make_train_step
+
+    step = make_train_step(model, optim.OptConfig(**TRAIN_OPT))
+    with TraceCounter() as trace:
+        step(state, batch)
+    torch.cuda.synchronize()
+    cost = cost_terms(trace)
+    achieved = cost["flops"] / (ms * 1e-3)
+    print(f"[train] {model.cfg.name}: one step counted by cost_terms: "
+          f"{cost['flops'] / 1e12:.3f} TFLOP, "
+          f"{cost['bytes_accessed'] / 1e9:.2f} GB accessed, "
+          f"{cost['transcendentals'] / 1e9:.3f} G "
+          f"transcendentals; at the measured {ms:.1f} ms a step "
+          f"{achieved / 1e12:.2f} TFLOP/s = {achieved / 989e12:.4f} of "
+          f"989 TFLOP/s (bf16 dense peak), kernels {trace.kernels} "
+          f"[{card}]")
 
 
 def _float32_model(arch: str):
@@ -2959,10 +3040,368 @@ def phase_train_card_cpu(card: str) -> None:
               f"max_abs_err {err:.3e} (tol 1e-4) [{card}]")
 
 
-def main() -> int:
+def _train_lm(args, ckpt_dir: str, cut_at=None):
+    """examples/train_lm_torch.py ``args`` as a subprocess under
+    deterministic algorithms (CKPT_ENV and torch.use_deterministic_
+    algorithms, set by this launcher: the example has no flag for them).
+    With ``cut_at`` the process is killed once it has logged that step
+    and the checkpoint before it is on disk.  Returns (stdout lines,
+    seconds)."""
+    script = os.path.join(ROOT, "examples", "train_lm_torch.py")
+    code = ("import runpy, sys, torch; "
+            "torch.use_deterministic_algorithms(True); "
+            f"sys.argv = {[script, *args, '--ckpt-dir', ckpt_dir]!r}; "
+            f"runpy.run_path({script!r}, run_name='__main__')")
+    env = dict(os.environ, **CKPT_ENV,
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    err_path = ckpt_dir.rstrip(os.sep) + ".stderr"
+    err_file = open(err_path, "w")
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=subprocess.PIPE, stderr=err_file,
+                            text=True)
+    _CHILDREN.append(proc)
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            if cut_at is not None and line.startswith(f"step {cut_at:4d}"):
+                before = (cut_at // 50) * 50
+                deadline = time.time() + 120
+                while not os.path.isdir(os.path.join(ckpt_dir,
+                                                     f"step_{before}")):
+                    if time.time() > deadline:
+                        raise AssertionError(f"no checkpoint {before}")
+                    time.sleep(0.05)
+                proc.kill()
+                break
+        proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    proc.stdout.close()
+    err_file.close()
+    with open(err_path) as f:
+        err = f.read()
+    if cut_at is None and proc.returncode != 0:
+        raise AssertionError(f"train_lm_torch {args} failed: {err[-3000:]}")
+    return lines, time.perf_counter() - t0
+
+
+def _arrays(ckpt_dir: str, step: int) -> dict:
+    with np.load(os.path.join(ckpt_dir, f"step_{step}", "shard_0.npz")) \
+            as z:
+        return {k: z[k].tobytes() for k in z.files}
+
+
+def _dir_gb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in
+               os.walk(path) for f in fs) / 1e9
+
+
+def _checkpoint_train_lm(tmp: str, card: str) -> None:
+    """(a) of phase_checkpoint: uninterrupted, cut, resumed; the resumed
+    run's logged lines (the seconds column dropped) and its final
+    checkpoint's arrays equal the uninterrupted run's."""
+    def logged(lines):
+        return [ln.rsplit("(", 1)[0] for ln in lines
+                if ln.startswith("step ")]
+
+    import concurrent.futures
+    # The uninterrupted run goes alongside the cut and resumed ones: each
+    # process is bound by its host thread's launches (PERF.md, D10), and
+    # the card has room for two.
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        whole_run = pool.submit(_train_lm, [], os.path.join(tmp, "whole"))
+        cut_dir = os.path.join(tmp, "cut")
+        cut, t_cut = _train_lm([], cut_dir, cut_at=CKPT_CUT)
+        resumed, t_res = _train_lm([], cut_dir)
+        whole, t_whole = whole_run.result()
+    start = [ln for ln in resumed if ln.startswith("resuming from")]
+    tail = logged(resumed)
+    if not start or not tail or tail != logged(whole)[-len(tail):]:
+        raise AssertionError(f"resumed run's log {resumed} is not the "
+                             f"uninterrupted run's {whole}")
+    a, b = _arrays(cut_dir, CKPT_STEPS), \
+        _arrays(os.path.join(tmp, "whole"), CKPT_STEPS)
+    if a.keys() != b.keys() or any(a[k] != b[k] for k in a):
+        raise AssertionError("resumed final checkpoint differs from the "
+                             "uninterrupted run's")
+    print(f"[checkpoint] train_lm_torch ({whole[0]}), B 8 x T 128, "
+          f"{CKPT_STEPS} steps, a checkpoint every 50, deterministic "
+          f"algorithms: uninterrupted {t_whole:.1f} s ({whole[-1]}), "
+          f"alongside: cut "
+          f"after logging step {CKPT_CUT} at {t_cut:.1f} s; resumed "
+          f"({start[0]}) {t_res:.1f} s: {len(tail)} logged lines and the "
+          f"final checkpoint's {len(a)} arrays "
+          f"({_dir_gb(os.path.join(cut_dir, f'step_{CKPT_STEPS}')):.2f} GB)"
+          f" equal the uninterrupted run's bit for bit [{card}]")
+
+
+def _checkpoint_rwkv6(tmp: str, card: str) -> dict:
+    """(b) of phase_checkpoint: rwkv6-1.6b's training state through an
+    async save under a step and a restore into a fresh state.  Returns
+    the launches of its four steps (wkv6 on chunked once a layer and
+    step, no decode_attn)."""
+    import dataclasses
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.decode_attn.ops import decode_attn
+    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b"),
+                              n_layers=CKPT_RWKV_LAYERS)
+    model = build_model(cfg)
+    state = init_train_state(model,
+                             torch.Generator(device="cuda").manual_seed(0))
+    batch = _train_batch(cfg, 2, 256, model.device)
+    step = make_train_step(model, optim.OptConfig(**TRAIN_OPT))
+    n_params = sum(p.numel() for p in state.params.parameters())
+    _zero_counts(decode_attn, wkv6)
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+
+    def words(st) -> dict:
+        out = {f"p.{n}": p.detach().clone()
+               for n, p in st.params.named_parameters()}
+        for key in ("master", "m", "v"):
+            out.update({f"{key}.{n}": t.clone()
+                        for n, t in getattr(st.opt, key).items()})
+        return out
+
+    snap, snap_step = words(state), state.opt.step
+    ck = Checkpointer(os.path.join(tmp, "rwkv6"), keep=1)
+    t0 = time.perf_counter()
+    ck.save(2, state)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, live = step(state, batch)         # the write runs meanwhile
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t0
+    live_grads = {n: g.clone() for n, g in _param_grads(state.params)
+                  .items()}
+    t0 = time.perf_counter()
+    ck.wait()
+    t_wait = time.perf_counter() - t0
+    gb = _dir_gb(os.path.join(tmp, "rwkv6", "step_2"))
+    del state
+    gc.collect()
+    fresh = init_train_state(model,
+                             torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = ck.restore(2, fresh)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    got = words(restored)
+    if restored.opt.step != snap_step or got.keys() != snap.keys():
+        raise AssertionError("restored state's structure differs")
+    for name, want in snap.items():
+        g = got[name]
+        if g.dtype != want.dtype or not torch.equal(
+                g.view(torch.int16 if g.element_size() == 2 else
+                       torch.int32), want.view(torch.int16 if
+                                               want.element_size() == 2
+                                               else torch.int32)):
+            raise AssertionError(f"restored {name} differs from the "
+                                 f"snapshot")
+    del snap, got
+    restored, again = step(restored, batch)
+    if float(again["loss"]) != float(live["loss"]):
+        raise AssertionError(f"loss from the restored state "
+                             f"{float(again['loss'])!r} != the live state's "
+                             f"{float(live['loss'])!r}")
+    worst = _grads_held("rwkv6 step from the restored state",
+                        _param_grads(restored.params), live_grads,
+                        TRAIN_GRAD_REL)
+    counts = {**_counts(decode_attn), **_counts(wkv6)}
+    want = 4 * cfg.n_layers
+    if wkv6.launches_by_route["chunked"] != want or \
+            wkv6.launches != want or decode_attn.launches:
+        raise AssertionError(f"launches {counts}, want wkv6 {want} on "
+                             f"chunked, no decode_attn")
+    print(f"[checkpoint] rwkv6-1.6b at full width, {cfg.n_layers} of 24 "
+          f"layers ({n_params / 1e9:.3f} B parameters), B 2 x T 256, wkv6 "
+          f"on chunked once a layer and step: save {t_save:.2f} s "
+          f"(snapshot to host), the third step under the write "
+          f"{1e3 * t_step:.1f} ms (the second alone {1e3 * times[1]:.1f} "
+          f"ms), wait {t_wait:.2f} s, {gb:.2f} GB written "
+          f"({gb / (t_save + t_step + t_wait):.2f} GB/s from save to "
+          f"written); restore {t_restore:.2f} s ({gb / t_restore:.2f} "
+          f"GB/s): every tensor equal to the snapshot word for word, the "
+          f"next step's loss {float(again['loss'])!r} = the live state's "
+          f"bit for bit, its gradients within {TRAIN_GRAD_REL} of max|g| "
+          f"(worst {worst:.2e}); launches {counts} [{card}]")
+    return counts
+
+
+def phase_checkpoint(card: str) -> dict:
+    """(a) examples/train_lm_torch.py at its default size, uninterrupted,
+    cut and resumed; (b) rwkv6-1.6b's state through an async save and a
+    restore.  Both write under a temporary directory, deleted at the
+    end.  Returns (b)'s launches (a training path: wkv6 on chunked)."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        _checkpoint_train_lm(tmp, card)
+        return _checkpoint_rwkv6(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _start(cmd, tmp: str, name: str, env=None) -> dict:
+    """``cmd`` as a child process of this run, its output to files under
+    ``tmp`` (read once it ends: a pipe nobody reads could fill and stall
+    it); stopped by _stop_children if the run fails first."""
+    out = os.path.join(tmp, f"{name}.out")
+    err = os.path.join(tmp, f"{name}.err")
+    with open(out, "w") as fo, open(err, "w") as fe:
+        proc = subprocess.Popen(cmd, stdout=fo, stderr=fe, cwd=ROOT,
+                                env=env)
+    _CHILDREN.append(proc)
+    return {"proc": proc, "out": out, "err": err,
+            "t0": time.perf_counter()}
+
+
+def _finish(child: dict, timeout: float):
+    """(exit code, stdout, stderr, seconds since the start) of a child
+    started by _start, once it has ended."""
+    proc = child["proc"]
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    with open(child["out"]) as fo, open(child["err"]) as fe:
+        out, err = fo.read(), fe.read()
+    return proc.returncode, out, err, time.perf_counter() - child["t0"]
+
+
+def _stop_children() -> None:
+    """Kill every child process this run started that is still running,
+    and the CGRA compile pool's workers."""
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if "repro_torch.core.pool" in sys.modules:
+        sys.modules["repro_torch.core.pool"].reset_pool(kill=True)
+
+
+def start_dryrun(tmp: str) -> list:
+    """phase_dryrun's two command lines, started as subprocesses to run
+    alongside phase_checkpoint (they trace fake tensors on the host)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    arch, shape = DRYRUN_CELL
+    runs = (("dryrun", f"dryrun {arch} {shape}",
+             ["repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+              "--out", os.path.join(tmp, "dryrun.json")]),
+            ("roofline", "roofline " + " ".join(ROOFLINE_CELLS),
+             ["repro_torch.roofline.run", "--cells", *ROOFLINE_CELLS,
+              "--dryrun-json", os.path.join(tmp, "none.json"), "--out",
+              os.path.join(tmp, "roofline.json")]))
+    return [(label, _start([sys.executable, "-m", *args], tmp, name, env))
+            for name, label, args in runs]
+
+
+def phase_dryrun(runs: list, card: str) -> None:
+    """The launch dry run of one decode cell and the roofline of two
+    train cells on the fake 16x16 mesh of fake tensors of the card's
+    type, as their command lines run them (started by start_dryrun):
+    each exits 0 and every JSON record's status is ``ok``."""
+    for label, child in runs:
+        rc, out, err, seconds = _finish(child, timeout=600)
+        recs = [json.loads(ln) for ln in out.splitlines()
+                if ln.startswith("{")]
+        if rc != 0 or not recs or \
+                any(r.get("status") != "ok" for r in recs):
+            raise AssertionError(f"{label}: exit {rc}, records {recs}: "
+                                 f"{err[-3000:]}")
+        for r in recs:
+            print(f"[dryrun] {label}: {json.dumps(r)}")
+        print(f"[dryrun] {label}: exit 0, {len(recs)} records ok, ended "
+              f"within {seconds:.1f} s of its start, beside "
+              f"phase_checkpoint [{card}]")
+
+
+def start_cgra_process(tmp: str) -> dict:
+    """phase_cgra and phase_cgra_tools in a second process on the same
+    card (this script with CGRA_PROCESS_FLAG), to run alongside the
+    serving, training and checkpoint phases: the CGRA flow is bound by
+    its host thread and its compile pool, and leaves the card idle for
+    most of its time (idle shares in its lines)."""
+    return _start([sys.executable, os.path.abspath(__file__),
+                   CGRA_PROCESS_FLAG], tmp, "cgra")
+
+
+def finish_cgra_process(child: dict) -> None:
+    """Wait for the CGRA process, print its lines, fail unless it
+    exited 0."""
+    rc, out, err, seconds = _finish(child, timeout=WATCHDOG_S)
+    sys.stdout.write(out)
+    if rc != 0:
+        raise AssertionError(f"the CGRA process exited {rc}: "
+                             f"{err[-3000:]}")
+    print(f"[env] the CGRA process: exit 0, ended within {seconds:.1f} s "
+          "of its start")
+
+
+def cgra_process_main() -> int:
+    """The body of the CGRA process: phase_cgra, then phase_cgra_tools
+    over its compiled set; prints their lines and each one's seconds."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    card = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cks = phase_cgra(card)
+    t1 = time.perf_counter()
+    print(f"[env] phase_cgra: {t1 - t0:.1f} s")
+    phase_cgra_tools(card, cks)
+    print(f"[env] phase_cgra_tools: {time.perf_counter() - t1:.1f} s")
+    return 0
+
+
+def _watchdog() -> None:
+    """After WATCHDOG_S: every thread's stack and the CGRA process's lines
+    so far to stderr, every child stopped, exit 1 (a hang shows where it
+    is instead of running into a caller's limit)."""
+    def fire():
+        print(f"[env] chip_smoke still running after {WATCHDOG_S} s; "
+              "every thread's stack:", file=sys.stderr, flush=True)
+        faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        for proc in _CHILDREN:
+            state = "running" if proc.poll() is None else proc.returncode
+            print(f"[env] child {str(proc.args)[:160]}: {state}",
+                  file=sys.stderr, flush=True)
+        _stop_children()
+        os._exit(1)
+
+    timer = threading.Timer(WATCHDOG_S, fire)
+    timer.daemon = True
+    timer.start()
+
+
+def main() -> int:
+    if sys.argv[1:] == [CGRA_PROCESS_FLAG]:
+        return cgra_process_main()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.stdout.reconfigure(line_buffering=True)
+    _watchdog()
     card = card_line()
     t_start = time.perf_counter()
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}"
@@ -2974,48 +3413,63 @@ def main() -> int:
     def lap(label: str) -> None:
         nonlocal clock
         now = time.perf_counter()
-        print(f"[env] {label}: {now - clock:.1f} s")
+        line = f"[env] {label}: {now - clock:.1f} s"
+        print(line)
+        print(f"{line} (at {now - t_start:.1f} s)", file=sys.stderr,
+              flush=True)
         clock = now
 
-    phase_build()
-    lap("build")
-    entries = [phase_decode_attn_check(card), *phase_wkv6_check(card)]
-    lap("decode_attn and wkv6 checks")
-    table1, launches = phase_table1_kernels(card)
-    entries += table1
-    lap("Table-I kernels and the kernel path")
-    cks = phase_cgra(card)
-    lap("phase_cgra")
-    phase_cgra_tools(card, cks)
-    lap("phase_cgra_tools")
-    _add_counts(launches, phase_serve_cgra(card))
-    gc.collect()
-    torch.cuda.empty_cache()
-    lap("phase_serve_cgra")
-    for arch, n_layers in SERVED:
-        _add_counts(launches, phase_serve(card, arch, n_layers))
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        phase_build()
+        lap("build")
+        entries = [phase_decode_attn_check(card), *phase_wkv6_check(card)]
+        lap("decode_attn and wkv6 checks")
+        table1, launches = phase_table1_kernels(card)
+        entries += table1
+        lap("Table-I kernels and the kernel path")
+        cgra = start_cgra_process(tmp)
+        _add_counts(launches, phase_serve_cgra(card))
         gc.collect()
         torch.cuda.empty_cache()
-        lap(f"phase_serve {arch}")
-    for arch in EMBEDDED:
-        _add_counts(launches, phase_embedded(card, arch))
+        lap("phase_serve_cgra (the CGRA process alongside from here)")
+        for arch, n_layers in SERVED:
+            _add_counts(launches, phase_serve(card, arch, n_layers))
+            gc.collect()
+            torch.cuda.empty_cache()
+            lap(f"phase_serve {arch}")
+        for arch in EMBEDDED:
+            _add_counts(launches, phase_embedded(card, arch))
+            gc.collect()
+            torch.cuda.empty_cache()
+            lap(f"phase_embedded {arch}")
+        phase_card_cpu(card)
+        lap("phase_card_cpu")
+        phase_table1(card)
+        lap("phase_table1")
+        train_launches = phase_train(card)
         gc.collect()
         torch.cuda.empty_cache()
-        lap(f"phase_embedded {arch}")
-    phase_card_cpu(card)
-    lap("phase_card_cpu")
-    phase_table1(card)
-    lap("phase_table1")
-    train_launches = phase_train(card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    lap("phase_train")
-    phase_train_grads(card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    lap("phase_train_grads")
-    phase_train_card_cpu(card)
-    lap("phase_train_card_cpu")
+        lap("phase_train")
+        phase_train_grads(card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("phase_train_grads")
+        phase_train_card_cpu(card)
+        lap("phase_train_card_cpu")
+        dryruns = start_dryrun(tmp)
+        _add_counts(train_launches, phase_checkpoint(card))
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("phase_checkpoint (the dry runs alongside)")
+        phase_dryrun(dryruns, card)
+        lap("phase_dryrun (the rest of its time)")
+        finish_cgra_process(cgra)
+        lap("waiting for the CGRA process")
+    finally:
+        _stop_children()
+        shutil.rmtree(tmp, ignore_errors=True)
     for entry in entries:     # a routed kernel's entry: its route's count
         counts = train_launches if entry.get("path") == "train" \
             else launches

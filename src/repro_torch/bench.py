@@ -231,6 +231,14 @@ def _verification_set():
     return _set_toolchain.compile_many(list(specs.values()))
 
 
+def share_verification_toolchain(tc) -> None:
+    """Compile the rows' verification set through ``tc``: a caller that
+    has compiled the set with it already hands the rows its memo instead
+    of a second cold compile."""
+    global _set_toolchain
+    _set_toolchain = tc
+
+
 # the seed batch of the verify row, as benchmarks/run.py's
 VERIFY_SEEDS = tuple(range(8))
 
@@ -349,10 +357,9 @@ def bench_dse_sweep(device: DeviceLike = None) -> List[Dict]:
     time; the others are the sweep's own rows
     (:func:`~repro_torch.dse.pareto.sweep_bench_rows`: modeled latency,
     deterministic, the JAX package's rows word for word)."""
-    from .core import simcache
     from .core.mapper import MapperOptions
     from .core.toolchain import Toolchain
-    from .dse import frontier, get_space, run_sweep, sweep_bench_rows
+    from .dse import get_space, run_sweep
 
     dev = resolve_device(device)
     cache = tempfile.mkdtemp(prefix="morpher-dse-bench-")
@@ -364,6 +371,15 @@ def bench_dse_sweep(device: DeviceLike = None) -> List[Dict]:
         wall = time.perf_counter() - t0
     finally:
         shutil.rmtree(cache, ignore_errors=True)
+    return dse_sweep_rows(results, wall)
+
+
+def dse_sweep_rows(results, wall: float) -> List[Dict]:
+    """``bench_dse_sweep``'s rows from a cold sweep of the SWEEP_SPACE
+    (``run_sweep``'s results) that took ``wall`` seconds."""
+    from .core import simcache
+    from .dse import frontier, sweep_bench_rows
+
     rows = sweep_bench_rows(results)
     n_kernels = sum(len(r.kernels) for r in results)
     head = {"name": "dse_sweep_torch", "us": round(wall * 1e6, 1),

@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from ..common import note_cost, replicated_locals, shape_only
 from .kernel import ROUTES, conv2d_os_cuda
 from .ref import conv2d_ref
 
@@ -27,6 +28,8 @@ def conv2d_os(x: torch.Tensor, w: torch.Tensor, *,
     tensor's device chooses kernel or plain version.  On the card
     ``kernel.route`` chooses the kernel from the shape."""
     out_dtype = out_dtype or x.dtype
+    if shape_only(x, w):
+        return _shape_only(x, w, out_dtype)
     if x.device.type == "cpu":
         return conv2d_ref(x, w, out_dtype)
     if x.device.type != "cuda":
@@ -35,6 +38,31 @@ def conv2d_os(x: torch.Tensor, w: torch.Tensor, *,
     out, r = conv2d_os_cuda(x, w, out_dtype=out_dtype)
     conv2d_os.launches += 1
     conv2d_os.launches_by_route[r.kind] += 1
+    note_cost("conv2d_os", *conv2d_os_cost(*x.shape, *w.shape[:2],
+                                           w.shape[3], x.element_size(),
+                                           out.element_size()))
+    return out
+
+
+def conv2d_os_cost(N: int, H: int, W: int, Cin: int, KH: int, KW: int,
+                   Cout: int, in_bytes: int, out_bytes: int):
+    """(flops, bytes): x and w read once, the output written once;
+    2 * KH * KW * Cin flops per output element."""
+    Ho, Wo = H - KH + 1, W - KW + 1
+    return (2 * N * Ho * Wo * Cout * KH * KW * Cin,
+            (N * H * W * Cin + KH * KW * Cin * Cout) * in_bytes
+            + N * Ho * Wo * Cout * out_bytes)
+
+
+def _shape_only(x, w, out_dtype):
+    """The dry run's branch (see ``kernels.common``)."""
+    x, w = replicated_locals(x, w)
+    N, H, W, Cin = x.shape
+    KH, KW, _, Cout = w.shape
+    out = x.new_empty((N, H - KH + 1, W - KW + 1, Cout), dtype=out_dtype)
+    note_cost("conv2d_os", *conv2d_os_cost(N, H, W, Cin, KH, KW, Cout,
+                                           x.element_size(),
+                                           out.element_size()))
     return out
 
 

@@ -11,6 +11,7 @@ from typing import Optional
 
 import torch
 
+from ..common import note_cost, replicated_locals, shape_only
 from .kernel import ROUTES, gemm_os_cuda
 from .ref import gemm_ref
 
@@ -30,6 +31,8 @@ def gemm_os(a: torch.Tensor, b: torch.Tensor,
     edges, and the tensor's device chooses kernel or plain version.  On
     the card ``kernel.route`` chooses the kernel from the shape."""
     out_dtype = out_dtype or a.dtype
+    if shape_only(a, b, bias):
+        return _shape_only(a, b, bias, out_dtype)
     if a.device.type == "cpu":
         return gemm_ref(a, b, bias, activation, out_dtype)
     if a.device.type != "cuda":
@@ -39,6 +42,29 @@ def gemm_os(a: torch.Tensor, b: torch.Tensor,
                           coalesce_grid=coalesce_grid, out_dtype=out_dtype)
     gemm_os.launches += 1
     gemm_os.launches_by_route[r.kind] += 1
+    note_cost("gemm_os", *gemm_os_cost(a.shape[0], a.shape[1], b.shape[1],
+                                       a.element_size(), out.element_size(),
+                                       bias is not None))
+    return out
+
+
+def gemm_os_cost(M: int, K: int, N: int, in_bytes: int, out_bytes: int,
+                 with_bias: bool):
+    """(flops, bytes): A and B (and bias) read once, C written once; 2MKN
+    flops."""
+    return (2 * M * K * N,
+            (M * K + K * N) * in_bytes + M * N * out_bytes
+            + (N * in_bytes if with_bias else 0))
+
+
+def _shape_only(a, b, bias, out_dtype):
+    """The dry run's branch (see ``kernels.common``): operands replicated,
+    the output empty, the work reported by :func:`gemm_os_cost`."""
+    a, b, bias = replicated_locals(a, b, bias)
+    out = a.new_empty((a.shape[0], b.shape[1]), dtype=out_dtype)
+    note_cost("gemm_os", *gemm_os_cost(a.shape[0], a.shape[1], b.shape[1],
+                                       a.element_size(), out.element_size(),
+                                       bias is not None))
     return out
 
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..common import note_cost, replicated_locals, shape_only
 from .kernel import ROUTES, qgemm_int8_cuda
 from .ref import qgemm_ref
 
@@ -27,6 +28,8 @@ def qgemm_int8(a: torch.Tensor, b: torch.Tensor, a_scale: torch.Tensor,
     Hopper kernel has its own tiles and masks ragged edges, and the
     tensor's device chooses kernel or plain version.  On the card
     ``kernel.route`` chooses the kernel from the shape."""
+    if shape_only(a, b, a_scale, b_scale):
+        return _shape_only(a, b, a_scale, b_scale, out_dtype)
     if a.device.type == "cpu":
         return qgemm_ref(a, b, a_scale, b_scale, out_dtype)
     if a.device.type != "cuda":
@@ -35,6 +38,23 @@ def qgemm_int8(a: torch.Tensor, b: torch.Tensor, a_scale: torch.Tensor,
     out, kind = qgemm_int8_cuda(a, b, a_scale, b_scale, out_dtype=out_dtype)
     qgemm_int8.launches += 1
     qgemm_int8.launches_by_route[kind] += 1
+    note_cost("qgemm_int8", *qgemm_int8_cost(a.shape[0], a.shape[1],
+                                             b.shape[1], out.element_size()))
+    return out
+
+
+def qgemm_int8_cost(M: int, K: int, N: int, out_bytes: int):
+    """(operations, bytes): the int8 operands and float32 scales read
+    once, the output written once; 2MKN integer operations."""
+    return 2 * M * K * N, M * K + K * N + 4 * (M + N) + M * N * out_bytes
+
+
+def _shape_only(a, b, a_scale, b_scale, out_dtype):
+    """The dry run's branch (see ``kernels.common``)."""
+    a, b = replicated_locals(a, b)
+    out = a.new_empty((a.shape[0], b.shape[1]), dtype=out_dtype)
+    note_cost("qgemm_int8", *qgemm_int8_cost(a.shape[0], a.shape[1],
+                                             b.shape[1], out.element_size()))
     return out
 
 

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.common import repeated, shape_only
 from .common import ModelConfig, constant, rms_norm, weight
 
 # Time steps whose inputs and states are held at once: bounds the scan's
@@ -78,8 +79,23 @@ def _causal_conv(x, w, b, prev):
 def _ssd_scan(xs, Bm, Cm, a, dt, S):
     """xs (B,T,nh,hp), Bm / Cm (B,T,ds), a / dt (B,T,nh), all float32; S
     (B,nh,hp,ds) float32.  Returns (y (B,T,nh,hp), S after the last step)."""
+    T = xs.shape[1]
+    starts, repeat = range(0, T, SCAN_CHUNK), 1
+    if shape_only(xs) and T > SCAN_CHUNK and T % SCAN_CHUNK == 0:
+        # The launch dry run (fake tensors, no data): every chunk has the
+        # same shapes and work, so one is traced and counted T / SCAN_CHUNK
+        # times -- exact only because SCAN_CHUNK divides T.
+        starts, repeat = starts[:1], T // SCAN_CHUNK
+    with repeated(repeat):
+        ys, S = _scan_chunks(starts, xs, Bm, Cm, a, dt, S)
+    return torch.cat(ys * repeat, dim=1), S.clone()
+
+
+def _scan_chunks(starts, xs, Bm, Cm, a, dt, S):
+    """The scan over the chunks starting at ``starts``: (their outputs,
+    the state after the last)."""
     ys = []
-    for t0 in range(0, xs.shape[1], SCAN_CHUNK):
+    for t0 in starts:
         part = slice(t0, t0 + SCAN_CHUNK)
         dBx = torch.einsum("btnp,bts,btn->tbnps", xs[:, part], Bm[:, part],
                            dt[:, part])
@@ -95,7 +111,7 @@ def _ssd_scan(xs, Bm, Cm, a, dt, S):
             for t in range(dBx.shape[0]):
                 S = torch.addcmul(dBx[t], decay[t], S, out=states[t])
         ys.append(torch.einsum("tbnps,bts->btnp", states, Cm[:, part]))
-    return torch.cat(ys, dim=1), S.clone()
+    return ys, S
 
 
 def mamba2_block(p: Mamba2Block, cfg: ModelConfig, x: torch.Tensor,

@@ -91,7 +91,7 @@ def moe_forward(p: MoE, cfg: ModelConfig, x: torch.Tensor,
     # bucket receives duplicates, and it is thrown away.
     exp_idx = idx.reshape(-1)
     slot_idx = slot.reshape(-1)
-    xe = torch.zeros((E, C + 1, d), dtype=x.dtype, device=x.device)
+    xe = xf.new_zeros((E, C + 1, d))
     xe[exp_idx, slot_idx] = xf.repeat_interleave(k, dim=0)
     xe = xe[:, :C]
 

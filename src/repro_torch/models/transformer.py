@@ -12,10 +12,12 @@ the counterpart of the reference's ``jax.checkpoint``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.overrides import _get_current_function_mode_stack
 from torch.utils.checkpoint import checkpoint
 
 from .attention import GQA, MLA, gqa_forward, mla_forward
@@ -118,6 +120,25 @@ def _stack(per_layer):
     return tuple(torch.stack(c) for c in zip(*per_layer))
 
 
+@contextlib.contextmanager
+def _under(modes):
+    """Enters those of ``modes`` that are not active already."""
+    active = _get_current_function_mode_stack()
+    with contextlib.ExitStack() as stack:
+        for mode in modes:
+            if not any(mode is a for a in active):
+                stack.enter_context(mode)
+        yield
+
+
+def _recompute_as_forward():
+    """``checkpoint``'s contexts: none for the forward, and for the
+    recompute the torch function modes the forward ran under, which
+    autograd does not carry into the backward, so that the recompute
+    computes what the forward did."""
+    return contextlib.nullcontext(), _under(_get_current_function_mode_stack())
+
+
 def _embed(params: Transformer, cfg: ModelConfig, tokens_or_embeds):
     if cfg.input_mode == "tokens":
         return params.embed[tokens_or_embeds]
@@ -142,7 +163,8 @@ def transformer_train(params: Transformer, cfg: ModelConfig,
         for layer in layers:
             if remat:
                 x, _, a = checkpoint(block_forward, layer, cfg, x, positions,
-                                     None, None, use_reentrant=False)
+                                     None, None, use_reentrant=False,
+                                     context_fn=_recompute_as_forward)
             else:
                 x, _, a = block_forward(layer, cfg, x, positions, None, None)
             auxs.append(a)

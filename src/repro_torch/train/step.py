@@ -15,7 +15,7 @@ MoE aux included, and there is no ``metrics["moe_aux"]``.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -40,16 +40,21 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.mean(lse - gold)
 
 
-def make_loss_fn(model: Model, aux_weight: float = 0.01
+def make_loss_fn(model: Model, aux_weight: float = 0.01,
+                 logits_spec: Optional[Tuple[Any, Any]] = None
                  ) -> Callable[[nn.Module, Batch], Tuple[torch.Tensor, Dict]]:
     """(params, batch) -> (loss, {"ce", "moe_aux" for MoE configs}): the
     cross-entropy of ``model.train_logits`` on ``batch["inputs"]`` against
     ``batch["labels"]``, plus ``aux_weight`` times the MoE aux.  No MTP
-    term, as in the reference."""
+    term, as in the reference.  ``logits_spec`` (a DeviceMesh and
+    placements) pins DTensor logits' layout before the float32
+    cross-entropy, as the reference's sharding constraint does."""
     cfg = model.cfg
 
     def loss_fn(params: nn.Module, batch: Batch):
         logits, aux = model.train_logits(params, batch["inputs"])
+        if logits_spec is not None:
+            logits = logits.redistribute(*logits_spec)
         loss = cross_entropy(logits, batch["labels"])
         metrics = {"ce": loss}
         if cfg.moe:
@@ -75,14 +80,15 @@ def _backward(loss_fn, params: nn.Module, batch: Batch):
 
 
 def make_train_step(model: Model, opt_cfg: optim.OptConfig,
-                    num_microbatches: int = 1):
+                    num_microbatches: int = 1,
+                    logits_spec: Optional[Tuple[Any, Any]] = None):
     """(state, batch) -> (state, metrics {"ce", "moe_aux"?, "grad_norm",
     "lr", "loss"}).  The batch's leading axis splits into
     ``num_microbatches`` equal parts whose gradients add in float32 and
     are divided by their count, as are their losses.  After the step
     each parameter's ``.grad`` holds the gradient the update applied, in
-    the parameter's dtype."""
-    loss_fn = make_loss_fn(model)
+    the parameter's dtype.  ``logits_spec``: see :func:`make_loss_fn`."""
+    loss_fn = make_loss_fn(model, logits_spec=logits_spec)
 
     def train_step(state: TrainState, batch: Batch):
         params = state.params

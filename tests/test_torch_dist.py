@@ -4,8 +4,11 @@ an exhausted retry budget and a silent group are recovered from (or
 raise) as in the JAX package, fault plans round-trip and equal the
 reference's, the elastic bookkeeping answers as the reference's, a
 faulted compile fan-out gives the sequential artifacts, and
-``sharding`` is refused as not ported."""
+``sharding`` resolves lazily without loading torch."""
 import json
+import os
+import subprocess
+import sys
 import warnings
 
 import pytest
@@ -15,6 +18,8 @@ from repro_torch.dist import elastic, faults
 from repro_torch.dist.fleet import (DEFAULT_RETRIES, DEFAULT_TIMEOUT_S,
                                     FleetConfig, FleetError,
                                     backoff_schedule, run_fleet)
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 
 
 @pytest.fixture
@@ -187,7 +192,17 @@ def test_elastic_answers_as_the_reference():
         assert hb.all_alive(2, now=now) == rhb.all_alive(2, now=now)
 
 
-def test_sharding_is_not_ported():
-    import repro_torch.dist as dist
-    with pytest.raises(AttributeError, match="not ported"):
-        dist.sharding
+def test_sharding_resolves_without_loading_torch():
+    """``import repro_torch.dist`` loads no torch, and ``dist.sharding``
+    resolves lazily (its specs need no torch either)."""
+    code = ("import sys; import repro_torch.dist as d; "
+            "assert 'torch' not in sys.modules; "
+            "s = d.sharding; assert 'sharding' in dir(d); "
+            "assert s.param_spec((4096, 13440), type('M', (), {"
+            "'axis_names': ('data', 'model'), 'devices': "
+            "__import__('numpy').empty((16, 16))})()) == ('data', 'model'); "
+            "assert 'torch' not in sys.modules")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr

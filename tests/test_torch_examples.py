@@ -3,13 +3,16 @@ the edge-deployment analyzer on a user-defined ADL file prints what the
 reference's analyzer prints, ``serve_decode_torch.py --cgra --traffic
 --smoke`` writes the committed ``BENCH_serve_decode.json`` row (and, for
 zamba2 and deepseek-v3, the reference example's rows), the quickstart
-runs, and the examples that simulate or serve refuse to run
-without a card unless ``--device cpu`` is given."""
+runs, ``train_lm_torch.py --tiny`` stopped mid-run resumes to the
+uninterrupted run's losses and final checkpoint, and the examples that
+simulate, serve or train refuse to run without a card unless ``--device
+cpu`` is given."""
 import importlib.util
 import json
 import os
 import subprocess
 import sys
+import time
 
 import pytest
 
@@ -120,8 +123,55 @@ def test_quickstart_runs_on_the_cpu(tmp_path):
 
 @pytest.mark.parametrize("script,args", [
     ("serve_decode_torch.py", ("--smoke",)),
-    ("quickstart_torch.py", ())])
+    ("quickstart_torch.py", ()),
+    ("train_lm_torch.py", ("--tiny",))])
 def test_examples_need_a_device_without_a_card(script, args, tmp_path):
     res = _run(script, *args, cache=tmp_path, cuda=False, check=False)
     assert res.returncode != 0
     assert "device='cpu'" in res.stderr
+
+
+TRAIN_FLAGS = ("--tiny", "--device", "cpu", "--steps", "12", "--batch", "2",
+               "--seq", "32", "--ckpt-every", "4")
+
+
+def _losses(stdout):
+    """The logged steps' lines without their wall-clock seconds."""
+    return [ln.rsplit("(", 1)[0] for ln in stdout.splitlines()
+            if ln.startswith("step ")]
+
+
+def _final_arrays(ckpt_dir):
+    import numpy as np
+    with np.load(os.path.join(ckpt_dir, "step_12", "shard_0.npz")) as z:
+        return {k: z[k].tobytes() for k in z.files}
+
+
+def test_train_lm_resumes_to_the_uninterrupted_run(tmp_path):
+    """Uninterrupted; killed once the checkpoint of step 4 is on disk; then
+    resumed: the resumed run logs the uninterrupted run's lines from where
+    it starts and ends on the same final checkpoint, byte for byte (float32
+    on the CPU is deterministic)."""
+    whole = _run("train_lm_torch.py", *TRAIN_FLAGS, "--ckpt-dir",
+                 str(tmp_path / "whole"), cache=tmp_path / "c0")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    ckpt = tmp_path / "cut"
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(EXAMPLES, "train_lm_torch.py"),
+         *TRAIN_FLAGS, "--ckpt-dir", str(ckpt)], env=env,
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    try:
+        deadline = time.time() + 300
+        while not (ckpt / "step_4").exists() and proc.poll() is None:
+            assert time.time() < deadline, "no checkpoint of step 4"
+            time.sleep(0.05)
+    finally:
+        proc.kill()
+        proc.wait()
+    assert not (ckpt / "step_12").exists(), "the run ended before the cut"
+    resumed = _run("train_lm_torch.py", *TRAIN_FLAGS, "--ckpt-dir",
+                   str(ckpt), cache=tmp_path / "c1")
+    assert "resuming from checkpoint step" in resumed.stdout
+    tail = _losses(resumed.stdout)
+    assert tail and tail == _losses(whole.stdout)[-len(tail):]
+    assert _final_arrays(ckpt) == _final_arrays(tmp_path / "whole")
