@@ -16,7 +16,13 @@
    Then each at the shapes the fast kernels are not built for (ROADMAP
    C10): decode_attn at head_dims 80, 96 and 256 (float32 and bf16, G 1
    and 4, a row of length 0, S 600) and wkv6 at D 80 and 256 on both
-   routes (T 16 and 256), on their any-D kernels.
+   routes (T 16 and 256), on their any-D kernels.  Then the wkv6
+   backward kernel against float64 autograd through the plain
+   recurrence (each gradient within the larger of 1e-4 of its max|g|
+   and the plain backward's own error): at the training shape (B 2, T
+   256) in bf16 and float32 with decays as the model draws them, near 0
+   and near 1, and at T 48, D 80 from a nonzero state; two calls equal
+   bit for bit; timed beside the plain backward.
 3. The Table-I kernels (phase_table1_kernels): gemm_os at llama3.2-1b's
    ffn_in GEMM site (prefill in bf16 and float32, decode in bf16, the
    fused bias+silu and bias+gelu epilogues in both types, a ragged
@@ -123,22 +129,24 @@
 11. Trains llama3.2-1b (16 layers, B 4 x T 1024, 6 steps, then one
    2-microbatch step whose loss is within 1% of the unbatched one) and
    rwkv6-1.6b (24 layers, B 2 x T 256, 4 steps, wkv6 on the chunked
-   route once a layer and step, its backward recomputing through the
-   plain recurrence) at full size through repro_torch.train
+   route and its backward kernel once a layer and step each, the plain
+   versions patched to raise) at full size through repro_torch.train
    (phase_train): losses finite and falling, ms a step, tokens/s, peak
-   GiB, the rwkv6 step's split between kernel and recomputing backward;
+   GiB, the rwkv6 step's split: forward, backward, backward kernel;
    every wkv6 call of one rwkv6 training forward held against the plain
    version (in float64) on the inputs the model made; one more step of
    each counted by repro_torch.roofline.hlo's cost_terms on the card's
    tensors gives the achieved share of 989 TFLOP/s.  Then both at full
    size in float32 (phase_train_grads): llama3.2-1b's 2-microbatch
    gradients against the whole batch's, rwkv6's gradients with the wkv6
-   kernel against those with the plain recurrence in its place, 1e-4.
+   kernels against those with the plain recurrence in its place, 1e-4,
+   and each of the 24 backward kernel calls on the model's own inputs
+   against float64 autograd as in step 2.
 12. One training step of each of the seven families at reduced() size,
    card against CPU in float32 (phase_train_card_cpu): loss, grad_norm
    and gradients within 1e-4, MoE choices equal; and the wkv6
-   autograd Function's gradients against autograd through the plain
-   recurrence (its plumbing: its backward is that same autograd).
+   autograd Function's gradients (the backward kernel) against autograd
+   through the plain recurrence.
 13. Checkpointing (phase_checkpoint): examples/train_lm_torch.py at its
    defaults (~88 M float32 parameters, B 8 x T 128, 200 steps, a
    checkpoint every 50) as a subprocess under deterministic algorithms,
@@ -151,7 +159,10 @@
    the snapshot word for word, whose next step's loss equals the live
    state's bit for bit and its gradients within 1e-4 of max|g|.
 14. The launch dry run (phase_dryrun): python -m
-   repro_torch.launch.dryrun on llama3.2-1b decode_32k and python -m
+   repro_torch.launch.dryrun on llama3.2-1b decode_32k, and on
+   deepseek-v3's decode_32k, prefill_32k and train_4k and zamba2-1.2b's
+   train_4k cut to 2 layers (ROADMAP C15: the card machine's torch
+   refused them before launch/rules.py's repairs), and python -m
    repro_torch.roofline.run on llama3.2-1b and rwkv6-1.6b train_4k, on
    the fake 16x16 mesh of fake tensors of the card's type: exit 0, every
    record ok.
@@ -163,8 +174,8 @@ subprocesses run alongside step 13.  Past 1140 s the run prints every
 thread's stack, stops its child processes and exits 1.
 15. Prints each phase's seconds, the kernels as one JSON line (launches:
    the sums over the serving paths of steps 6-8 and the kernel path; the
-   wkv6 entry at the training shape, "path": "train", the training
-   runs' and phase_checkpoint's rwkv6 steps'),
+   wkv6 entry at the training shape and the wkv6_backward entry, "path":
+   "train", the training runs' and phase_checkpoint's rwkv6 steps'),
    the card's name and power limit, and as its last line
    {"ok": true, "device": {...}}.
 
@@ -310,8 +321,21 @@ TRAIN_CARD_CPU = ("llama3.2-1b", "rwkv6-1.6b", "zamba2-1.2b",
                   "llama4-maverick-400b-a17b", "deepseek-v3-671b",
                   "musicgen-large", "llava-next-mistral-7b")
 TRAIN_CARD_CPU_REL = 1e-4
-# the wkv6 autograd Function against autograd through wkv6_ref: (D, T)
+# the wkv6 autograd Function (its backward the backward kernel) against
+# autograd through wkv6_ref: (D, T)
 WKV6_GRAD_CASES = ((64, 16), (64, 128), (80, 16), (80, 128))
+# The wkv6 backward kernel against float64 autograd through wkv6_ref
+# (phase_wkv6_check, phase_train_grads): each gradient within the larger
+# of WKV6_GRAD_REL of its largest |g| and the plain backward's own error
+# against float64 on that call (autograd through wkv6_ref in the call's
+# dtypes: float32 steps, each gradient rounded once to its dtype, as the
+# kernel's).  At the training shape (WKV6_TRAIN, from zeros, no state
+# gradient, as training calls it) at each of WKV6_DECAYS, and at
+# WKV6_BWD_SHORT (B, T, H, D): T < 64 (the forward's step route), D 80
+# (outside the fast kernels' set), from a nonzero state with a state
+# gradient
+WKV6_GRAD_REL = 1e-4
+WKV6_BWD_SHORT = (2, 48, 4, 80)
 TINY_FRONTIER = os.path.join(ROOT, "benchmarks", "results", "after",
                              "dse_frontier_tiny.json")
 # phase_checkpoint (a): examples/train_lm_torch.py at its defaults (~88 M
@@ -329,6 +353,13 @@ CKPT_RWKV_LAYERS = 2
 # phase_dryrun: the launch dry run and the roofline, as subprocesses
 DRYRUN_CELL = ("llama3.2-1b", "decode_32k")
 ROOFLINE_CELLS = ("llama3.2-1b:train_4k", "rwkv6-1.6b:train_4k")
+# and the cells only the card machine's torch refused before their repairs
+# in repro_torch.launch.rules (ROADMAP C15), cut to DRYRUN_C15_LAYERS
+# layers: the refusals are per-layer idioms
+DRYRUN_C15_CELLS = ("deepseek-v3-671b:decode_32k",
+                    "deepseek-v3-671b:prefill_32k",
+                    "deepseek-v3-671b:train_4k", "zamba2-1.2b:train_4k")
+DRYRUN_C15_LAYERS = 2
 # The argument that makes this script the CGRA process (phase_cgra and
 # phase_cgra_tools), which the run starts alongside its other phases
 CGRA_PROCESS_FLAG = "--cgra-process"
@@ -374,6 +405,21 @@ def wkv6_bound(B, T, H, D, dtype, with_state0: bool):
     nbytes = 5 * n * dtype.itemsize + 4 * H * D + \
         (2 if with_state0 else 1) * 4 * B * H * D * D
     return roofline(nbytes, 5 * B * H * T * D * D, PEAK_FLOPS[torch.float32])
+
+
+def wkv6_backward_bound(B, T, H, D, dtype, with_state0: bool,
+                        with_g_state: bool):
+    """(bound_ms, bound_by) of the work the gradient needs
+    (kernels/wkv6/ops.py: wkv6_backward_cost, float32 flops: 14 D^2 per
+    (batch, head, step) for S_{t-1}, G, dr, dk, dv and dw, and 3 D^2 for
+    the chunk entry states where T spans more than one chunk) over its
+    bytes: r, k, v, w and g_out read and their four gradients written
+    once, u read and du written, the states given read and dstate0
+    written."""
+    from repro_torch.kernels.wkv6.ops import wkv6_backward_cost
+    flops, nbytes = wkv6_backward_cost(B, T, H, D, dtype.itemsize,
+                                       with_state0, with_g_state)
+    return roofline(nbytes, flops, PEAK_FLOPS[torch.float32])
 
 
 def phase_build():
@@ -754,7 +800,159 @@ def phase_wkv6_check(card: str):
               f"{route(1, T, H, D)} route; step {times['step']:.5f} ms, "
               f"chunked {times['chunked']:.5f} ms [{card}]")
     _c10_wkv6(card)
+    entries.append(_wkv6_backward_check(card))
     return entries
+
+
+def _wkv6_autograd(args, wide):
+    """Gradients of (r, k, v, w, u, state0) by autograd through wkv6_ref
+    on ``args`` = (r, k, v, w, u, state0, g_out, g_state): in the inputs'
+    own dtypes when ``wide`` is None (the plain backward: float32 steps,
+    each gradient rounded once to its dtype), else widened to ``wide``.
+    state0's gradient is None where state0 is."""
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+
+    def cast(a):
+        return a if wide is None else a.to(wide)
+
+    ins = [None if a is None else cast(a).detach().requires_grad_()
+           for a in args[:6]]
+    wanted = [a for a in ins if a is not None]
+    with torch.enable_grad():
+        out, st = wkv6_ref(*ins)
+        pairs = [(out, args[6])] + ([(st, args[7])]
+                                    if args[7] is not None else [])
+        grads = torch.autograd.grad([o for o, _ in pairs], wanted,
+                                    [cast(g) for _, g in pairs],
+                                    allow_unused=True)
+    return [torch.zeros_like(a) if g is None else g
+            for g, a in zip(grads, wanted)] + \
+        ([None] if args[5] is None else [])
+
+
+def _wkv6_grads_held(label: str, got, args) -> dict:
+    """The kernel's gradients ``got`` of ``args`` (as _wkv6_autograd
+    takes them) against float64 autograd through wkv6_ref on the same
+    inputs: each within the larger of WKV6_GRAD_REL of its largest |g|
+    and the plain backward's own error against float64, in the dtype
+    autograd gives.  Returns the worst errors over the tensors: the
+    kernel's and the plain backward's, each over its tensor's max|g|
+    ("err", "plain"), and the kernel's largest absolute one ("abs")."""
+    exact = _wkv6_autograd(args, torch.float64)
+    plain = _wkv6_autograd(args, None)
+    worst = {"err": 0.0, "plain": 0.0, "abs": 0.0}
+    for name, g, e, p in zip(("r", "k", "v", "w", "u", "state0"), got,
+                             exact, plain):
+        if e is None:
+            continue
+        if g.dtype != p.dtype:
+            raise AssertionError(f"{label}: d{name} in {g.dtype}, autograd "
+                                 f"through wkv6_ref gives {p.dtype}")
+        scale = e.abs().max().item()
+        err = (g.double() - e).abs().max().item()
+        p_err = (p.double() - e).abs().max().item()
+        if err > max(WKV6_GRAD_REL * scale, p_err):
+            raise AssertionError(
+                f"{label}: d{name} differs from float64 autograd by {err}, "
+                f"over the larger of {WKV6_GRAD_REL} x max|g| {scale} and "
+                f"the plain backward's {p_err}")
+        if scale:
+            worst["err"] = max(worst["err"], err / scale)
+            worst["plain"] = max(worst["plain"], p_err / scale)
+        worst["abs"] = max(worst["abs"], err)
+    return worst
+
+
+def _wkv6_backward_check(card: str) -> dict:
+    """The backward kernel (wkv6_backward on CUDA tensors) held to float64
+    autograd through wkv6_ref (_wkv6_grads_held) on the route T gives it:
+    at the training shape WKV6_TRAIN from zeros with no state gradient, as
+    training calls it, in bf16 and float32 at each of WKV6_DECAYS
+    (chunked: the chunk entry states recomputed first); and at
+    WKV6_BWD_SHORT (step: one chunk; D 80) from a nonzero state with a
+    state gradient.  Each case's second call must equal its first bit for
+    bit.  At the training shape with the model's decays ("mid") the kernel
+    is timed beside the plain backward (autograd through wkv6_ref), and
+    profiled by kernel.  Returns the kernels line's entry (bf16 training,
+    path "train")."""
+    from repro_torch.bench import sleep_cycles_per_ms, time_ms
+    from repro_torch.kernels.wkv6.kernel import CHUNK_T
+    from repro_torch.kernels.wkv6.ops import wkv6_backward
+
+    cyc = sleep_cycles_per_ms()
+    entry = None
+    _zero_counts(wkv6_backward)
+    cases = [(*WKV6_TRAIN, H, D, False, decays) for decays in WKV6_DECAYS]
+    cases.append((*WKV6_BWD_SHORT, True, "mid"))
+    for dtype in (torch.bfloat16, torch.float32):
+        for nb, T, nh, d, with_state, decays in cases:
+            gen = torch.Generator(device="cuda").manual_seed(7 * T + d)
+            lo, hi = WKV6_DECAYS[decays]
+            shape = (nb, T, nh, d)
+
+            def make():
+                r, k = (0.5 * torch.randn(shape, generator=gen,
+                                          device="cuda") for _ in range(2))
+                v, go = (torch.randn(shape, generator=gen, device="cuda")
+                         for _ in range(2))
+                w = lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                                device="cuda")
+                u = 0.3 * torch.randn((nh, d), generator=gen, device="cuda")
+                s0, gs = (torch.randn((nb, nh, d, d), generator=gen,
+                                      device="cuda") if with_state else None
+                          for _ in range(2))
+                return (*(a.to(dtype) for a in (r, k, v, w)), u, s0,
+                        go.to(dtype), gs)
+
+            train = (nb, T) == WKV6_TRAIN
+            timed = train and decays == "mid"
+            nbytes = 9 * nb * T * nh * d * dtype.itemsize
+            bufs = [make() for _ in range(_copies(nbytes) if timed else 1)]
+            want_kind = "chunked" if T > CHUNK_T else "step"
+            label = f"wkv6 backward {str(dtype)[6:]} B={nb} T={T} H={nh} " \
+                f"D={d} {decays}"
+            got = wkv6_backward(*bufs[0])
+            again = wkv6_backward(*bufs[0])
+            torch.cuda.synchronize()
+            kind = ran_on(wkv6_backward, want_kind, label)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{label}: two calls differ")
+            held = _wkv6_grads_held(label, got, bufs[0])
+            timing = ""
+            if timed:
+                ms, host_ms = time_ms([lambda b=b: wkv6_backward(*b)
+                                       for b in bufs], 20, cyc)
+                plain_ms, _ = time_ms([lambda b=b: _wkv6_autograd(b, None)
+                                       for b in bufs], 2, cyc)
+                timing = f"; kernel {ms:.5f} ms (host {host_ms:.5f} ms " \
+                    f"per call), plain {plain_ms:.5f} ms; by kernel " + \
+                    _device_ms_by_kernel(wkv6_backward, bufs)
+                ran_on(wkv6_backward, kind, f"{label} timed")
+                bound_ms, bound_by = wkv6_backward_bound(
+                    nb, T, nh, d, dtype, with_state, with_state)
+                timing += f", bound {bound_ms:.5f} ms ({bound_by}), " \
+                    f"{100 * bound_ms / ms:.1f}% of bound"
+                if dtype == torch.bfloat16:
+                    entry = dict(
+                        name="wkv6_backward", route="cuda",
+                        kernel_route=kind, path="train",
+                        source="src/repro_torch/csrc/wkv6_backward.cu",
+                        replaces="src/repro/kernels/wkv6/kernel.py:53",
+                        shape=f"B={nb} T={T} H={nh} D={d} bf16, training "
+                        "backward, zero state, no state gradient",
+                        max_abs_err=held["abs"], ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=None)
+            print(f"[wkv6] {label} (decays {lo}-{hi}"
+                  f"{', state0 and g_state given' if with_state else ''}) "
+                  f"on the {kind} route, against float64 autograd through "
+                  f"wkv6_ref: worst |err| / max|g| {held['err']:.3e} (the "
+                  f"plain backward's {held['plain']:.3e}; tol the larger "
+                  f"of {WKV6_GRAD_REL} and the plain's), max_abs_err "
+                  f"{held['abs']:.3e}; two calls equal bit for bit"
+                  f"{timing} [{card}]")
+            del bufs
+    return entry
 
 
 def _device_ms_by_kernel(fn, bufs, calls: int = 10) -> str:
@@ -2661,22 +2859,23 @@ def _train_wkv6_held(model, state, batch, card: str) -> None:
 def _train_split(model, state, batch, card: str) -> None:
     """Where an rwkv6 training step goes, on the host clock (each part
     ends in a synchronize): the forward (loss), the backward and, inside
-    it, the wkv6 Function's recomputing backward (the plain recurrence
-    under autograd, timed per call); the forward's wkv6 kernels' device
-    time from torch.profiler over one forward (CUDA activity only)."""
+    it, the wkv6 backward kernel's calls (each timed alone, between
+    synchronizes); and from torch.profiler (CUDA activity only) the device
+    time of the forward's wkv6 kernels over one forward and of the
+    backward kernel's own kernels over one forward and backward."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.wkv6 import ops as wkv6_ops
     from repro_torch.train.step import make_loss_fn
 
     loss_fn = make_loss_fn(model)
-    plain_bwd = wkv6_ops._WKV6.backward
+    launcher = wkv6_ops.wkv6_backward_cuda
     spent = []
 
-    def timed_backward(ctx, *grads):
+    def timed_backward(*args):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = plain_bwd(ctx, *grads)
+        out = launcher(*args)
         torch.cuda.synchronize()
         spent.append(time.perf_counter() - t0)
         return out
@@ -2688,8 +2887,7 @@ def _train_split(model, state, batch, card: str) -> None:
     loss, _m = loss_fn(state.params, batch)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    with mock.patch.object(wkv6_ops._WKV6, "backward",
-                           staticmethod(timed_backward)):
+    with mock.patch.object(wkv6_ops, "wkv6_backward_cuda", timed_backward):
         loss.backward()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
@@ -2704,13 +2902,33 @@ def _train_split(model, state, batch, card: str) -> None:
     busy_ms = sum(e.self_device_time_total for e in ev) / 1e3
     for p in state.params.parameters():
         p.grad = None
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        loss_fn(state.params, batch)[0].backward()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if str(e.device_type).endswith("CUDA")]
+    bwd_kernel_ms = sum(e.self_device_time_total for e in ev
+                        if "wkv6_backward" in e.key) / 1e3
+    states_ms = sum(e.self_device_time_total for e in ev
+                    if "wkv6" in e.key and "backward" not in e.key) / 1e3 \
+        - kernel_ms
+    step_busy_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    for p in state.params.parameters():
+        p.grad = None
     print(f"[train] {model.cfg.name} step split: forward "
           f"{1e3 * (t1 - t0):.1f} ms (device busy {busy_ms:.1f} ms, of it "
           f"the wkv6 chunked kernels {kernel_ms:.2f} ms in "
           f"{model.cfg.n_layers} launches), backward "
-          f"{1e3 * (t2 - t1):.1f} ms, of it the wkv6 Function's "
-          f"recomputing backward {1e3 * sum(spent):.1f} ms in {len(spent)} "
-          f"calls [{card}]")
+          f"{1e3 * (t2 - t1):.1f} ms, of it the wkv6 backward kernel "
+          f"{1e3 * sum(spent):.1f} ms in {len(spent)} calls (host clock, "
+          f"each between synchronizes); forward + backward device busy "
+          f"{step_busy_ms:.1f} ms, of it the backward kernel's "
+          f"{bwd_kernel_ms:.2f} ms and its chunk states' {states_ms:.2f} "
+          f"ms [{card}]")
+
+
+def _plain_ran(*args, **kwargs):
+    raise AssertionError("a plain wkv6 version ran on the training path")
 
 
 def phase_train(card: str) -> dict:
@@ -2723,12 +2941,16 @@ def phase_train(card: str) -> dict:
     TRAIN_MICROBATCH_REL of the 1-microbatch loss there.  rwkv6-1.6b's
     forward must run wkv6 on the chunked route once a layer and step, and
     the Function's backward must give the recurrence a gradient (u);
-    transformer training reaches no kernel.  Then rwkv6's step is split
-    (``_train_split``): the wkv6 kernels against the recomputing
-    backward.  Returns the launches of the training runs."""
+    transformer training reaches no kernel.  rwkv6's steps run with the
+    plain versions (``wkv6_ref``, ``wkv6_backward_ref``) patched to raise
+    where kernels/wkv6/ops.py would call them, and its backward must
+    launch the backward kernel exactly once a layer and step.  Then
+    rwkv6's step is split (``_train_split``): the wkv6 kernels against
+    the rest.  Returns the launches of the training runs."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.decode_attn.ops import decode_attn
-    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6 import ops as wkv6_ops
+    from repro_torch.kernels.wkv6.ops import wkv6, wkv6_backward
     from repro_torch.models.zoo import build_model
     from repro_torch.train import optimizer as optim
     from repro_torch.train.step import (init_train_state, make_loss_fn,
@@ -2752,16 +2974,19 @@ def phase_train(card: str) -> dict:
               f"B={nb} T={T}, {n_steps} steps of one batch, "
               f"OptConfig({TRAIN_OPT}), remat on [{card}]")
         torch.cuda.reset_peak_memory_stats()
-        _zero_counts(decode_attn, wkv6)
+        _zero_counts(decode_attn, wkv6, wkv6_backward)
         losses, norms, times = [], [], []
-        for _ in range(n_steps):
-            t0 = time.perf_counter()
-            state, metrics = step(state, batch)
-            losses.append(float(metrics["loss"]))
-            norms.append(float(metrics["grad_norm"]))
-            times.append(time.perf_counter() - t0)
+        with mock.patch.object(wkv6_ops, "wkv6_ref", _plain_ran), \
+                mock.patch.object(wkv6_ops, "wkv6_backward_ref", _plain_ran):
+            for _ in range(n_steps):
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                losses.append(float(metrics["loss"]))
+                norms.append(float(metrics["grad_norm"]))
+                times.append(time.perf_counter() - t0)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        counts = {**_counts(decode_attn), **_counts(wkv6)}
+        counts = {**_counts(decode_attn), **_counts(wkv6),
+                  **_counts(wkv6_backward)}
         _add_counts(launches, counts)
         if not all(math.isfinite(x) for x in losses + norms):
             raise AssertionError(f"{arch}: a loss or norm is not finite: "
@@ -2771,15 +2996,16 @@ def phase_train(card: str) -> dict:
                                  f"{losses[-1]} did not fall")
         if cfg.family == "ssm":
             want = cfg.n_layers * n_steps
-            if wkv6.launches_by_route["chunked"] != want or \
-                    wkv6.launches != want or decode_attn.launches:
+            if any(op.launches_by_route["chunked"] != want or
+                   op.launches != want for op in (wkv6, wkv6_backward)) \
+                    or decode_attn.launches:
                 raise AssertionError(f"{arch}: launches {counts}, want "
-                                     f"wkv6 {want} on chunked, no "
-                                     f"decode_attn")
+                                     f"wkv6 and wkv6_backward {want} each "
+                                     f"on chunked, no decode_attn")
             u_grad = state.params.layers[0].u.grad
             if u_grad is None or not bool(u_grad.abs().max() > 0):
                 raise AssertionError(f"{arch}: no gradient through wkv6")
-        elif decode_attn.launches or wkv6.launches:
+        elif decode_attn.launches or wkv6.launches or wkv6_backward.launches:
             raise AssertionError(f"{arch}: training launched {counts}")
         steady = times[1:]
         ms = 1e3 * sum(steady) / len(steady)
@@ -2873,12 +3099,17 @@ def phase_train_grads(card: str) -> None:
     make_train_step with 2 microbatches against one loss.backward over
     the whole batch, loss and every accumulated gradient within
     TRAIN_GRAD_REL.  rwkv6-1.6b: one loss.backward with wkv6 on the
-    kernel (the autograd Function, on the chunked route once a layer)
-    against the same with wkv6_ref in its place, loss and every gradient
-    within TRAIN_GRAD_REL.  These launches are checks, not the training
+    kernels (the autograd Function: the forward on the chunked route and
+    the backward kernel, once a layer each) against the same with
+    wkv6_ref in its place (autograd through the plain recurrence): loss
+    and every gradient within TRAIN_GRAD_REL; and each of the backward
+    kernel's calls, recorded with the model's own inputs and incoming
+    gradients, held to float64 autograd through wkv6_ref by
+    _wkv6_grads_held.  These launches are checks, not the training
     path's."""
     import repro_torch.models.rwkv6 as rwkv6_mod
-    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6 import ops as wkv6_ops
+    from repro_torch.kernels.wkv6.ops import wkv6, wkv6_backward
     from repro_torch.kernels.wkv6.ref import wkv6_ref
     from repro_torch.train import optimizer as optim
     from repro_torch.train.step import (TrainState, make_loss_fn,
@@ -2920,22 +3151,45 @@ def phase_train_grads(card: str) -> None:
     arch = TRAIN_RUNS[1][0]
     model, params, batch = _float32_model(arch)
     n_layers = model.cfg.n_layers
-    _zero_counts(wkv6)
-    k_loss, k_grads, k_s = backward(model, params, batch)
-    if wkv6.launches_by_route["chunked"] != n_layers or \
-            wkv6.launches != n_layers:
-        raise AssertionError(f"float32 {arch}: wkv6 launches "
-                             f"{_counts(wkv6)}, want {n_layers} on chunked")
+    calls = []
+    launcher = wkv6_ops.wkv6_backward_cuda
+
+    def recording(*args):
+        out = launcher(*args)
+        calls.append((args, out[:6]))
+        return out
+
+    _zero_counts(wkv6, wkv6_backward)
+    with mock.patch.object(wkv6_ops, "wkv6_backward_cuda", recording):
+        k_loss, k_grads, k_s = backward(model, params, batch)
+    if any(op.launches_by_route["chunked"] != n_layers or
+           op.launches != n_layers for op in (wkv6, wkv6_backward)):
+        raise AssertionError(f"float32 {arch}: launches "
+                             f"{_counts(wkv6)} {_counts(wkv6_backward)}, "
+                             f"want {n_layers} each on chunked")
     with mock.patch.object(rwkv6_mod, "wkv6", wkv6_ref):
         p_loss, p_grads, p_s = backward(model, params, batch)
     rel = _loss_held(f"float32 {arch}, kernel - plain wkv6", k_loss, p_loss)
     worst = _grads_held(f"float32 {arch}, kernel - plain wkv6", k_grads,
                         p_grads, TRAIN_GRAD_REL)
-    print(f"[train] {arch} float32: loss with the wkv6 kernel {k_loss:.6f},"
+    print(f"[train] {arch} float32: loss with the wkv6 kernels {k_loss:.6f},"
           f" with wkv6_ref {p_loss:.6f} (rel {rel:.2e}); {len(p_grads)} "
           f"gradients, worst |kernel - plain| / max|g| {worst:.2e} (tol "
           f"{TRAIN_GRAD_REL}); forward + backward {k_s:.2f} s with the "
-          f"kernel, {p_s:.2f} s plain [{card}]")
+          f"kernels, {p_s:.2f} s plain [{card}]")
+    del p_grads, k_grads
+    held = [_wkv6_grads_held(f"float32 {arch} layer {i}'s wkv6 backward",
+                             grads, args)
+            for i, (args, grads) in enumerate(calls)]
+    r0 = calls[0][0][0]
+    print(f"[train] {arch} float32: the backward kernel's {len(calls)} "
+          f"calls {tuple(r0.shape)}, on the model's own inputs and "
+          f"incoming gradients, each held to float64 autograd through "
+          f"wkv6_ref: worst |err| / max|g| "
+          f"{max(h['err'] for h in held):.3e} (the plain backward's "
+          f"{max(h['plain'] for h in held):.3e}; tol the larger of "
+          f"{WKV6_GRAD_REL} and the plain's), max_abs_err "
+          f"{max(h['abs'] for h in held):.3e} [{card}]")
 
 
 def phase_train_card_cpu(card: str) -> None:
@@ -2945,16 +3199,17 @@ def phase_train_card_cpu(card: str) -> None:
     TRAIN_CARD_CPU_REL relative, every gradient within it of its tensor's
     largest |g|, every MoE routing's idx and keep equal.  Then the wkv6
     autograd Function's gradients of r, k, v, w, u and state0 against
-    autograd through wkv6_ref, float32, at WKV6_GRAD_CASES: its backward
-    is autograd through wkv6_ref, so this checks the Function's plumbing
-    (argument order, the gradients it returns and the ones it leaves
-    None), not the kernel; phase_train_grads checks that the kernel's
-    forward gives the gradients the plain one gives."""
+    autograd through wkv6_ref, float32, at WKV6_GRAD_CASES (T 16 and 128,
+    both forward routes; D 64 and 80), from a nonzero state with a state
+    gradient: its backward is the backward kernel, so this holds the
+    kernel (one launch a call) and the Function's plumbing (argument
+    order, the gradients it returns) to the plain recurrence's
+    gradients."""
     import copy
 
     import repro_torch.models.moe as moe
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6.ops import wkv6, wkv6_backward
     from repro_torch.kernels.wkv6.ref import wkv6_ref
     from repro_torch.models.zoo import build_model
     from repro_torch.train import optimizer as optim
@@ -3027,17 +3282,20 @@ def phase_train_card_cpu(card: str) -> None:
             out, st = fn(*ins)
             return torch.autograd.grad([out, st], ins, [g_out, g_state])
 
-        before = wkv6.launches
+        before = wkv6.launches, wkv6_backward.launches
         got = grads(wkv6)
         torch.cuda.synchronize()
-        if wkv6.launches != before + 1:
-            raise AssertionError("the wkv6 Function did not launch")
+        if (wkv6.launches, wkv6_backward.launches) != \
+                (before[0] + 1, before[1] + 1):
+            raise AssertionError("the wkv6 Function did not launch its "
+                                 "forward and backward kernels once each")
         err = max(_held(f"wkv6 gradient D={d} T={T} of input {i}", g, w,
                         (1e-4, 1e-4))
                   for i, (g, w) in enumerate(zip(got, grads(wkv6_ref))))
-        print(f"[train_card_cpu] wkv6 Function D={d} T={T}: gradients of "
-              f"r, k, v, w, u, state0 against autograd through wkv6_ref, "
-              f"max_abs_err {err:.3e} (tol 1e-4) [{card}]")
+        print(f"[train_card_cpu] wkv6 Function D={d} T={T} (the backward "
+              f"kernel): gradients of r, k, v, w, u, state0 against "
+              f"autograd through wkv6_ref, max_abs_err {err:.3e} (tol "
+              f"1e-4) [{card}]")
 
 
 def _train_lm(args, ckpt_dir: str, cut_at=None):
@@ -3142,14 +3400,14 @@ def _checkpoint_train_lm(tmp: str, card: str) -> None:
 def _checkpoint_rwkv6(tmp: str, card: str) -> dict:
     """(b) of phase_checkpoint: rwkv6-1.6b's training state through an
     async save under a step and a restore into a fresh state.  Returns
-    the launches of its four steps (wkv6 on chunked once a layer and
-    step, no decode_attn)."""
+    the launches of its four steps (wkv6 and its backward kernel on
+    chunked once a layer and step each, no decode_attn)."""
     import dataclasses
 
     from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.decode_attn.ops import decode_attn
-    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6.ops import wkv6, wkv6_backward
     from repro_torch.models.zoo import build_model
     from repro_torch.train import optimizer as optim
     from repro_torch.train.step import init_train_state, make_train_step
@@ -3162,7 +3420,7 @@ def _checkpoint_rwkv6(tmp: str, card: str) -> dict:
     batch = _train_batch(cfg, 2, 256, model.device)
     step = make_train_step(model, optim.OptConfig(**TRAIN_OPT))
     n_params = sum(p.numel() for p in state.params.parameters())
-    _zero_counts(decode_attn, wkv6)
+    _zero_counts(decode_attn, wkv6, wkv6_backward)
     times = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -3224,15 +3482,18 @@ def _checkpoint_rwkv6(tmp: str, card: str) -> dict:
     worst = _grads_held("rwkv6 step from the restored state",
                         _param_grads(restored.params), live_grads,
                         TRAIN_GRAD_REL)
-    counts = {**_counts(decode_attn), **_counts(wkv6)}
+    counts = {**_counts(decode_attn), **_counts(wkv6),
+              **_counts(wkv6_backward)}
     want = 4 * cfg.n_layers
-    if wkv6.launches_by_route["chunked"] != want or \
-            wkv6.launches != want or decode_attn.launches:
-        raise AssertionError(f"launches {counts}, want wkv6 {want} on "
-                             f"chunked, no decode_attn")
+    if any(op.launches_by_route["chunked"] != want or op.launches != want
+           for op in (wkv6, wkv6_backward)) or decode_attn.launches:
+        raise AssertionError(f"launches {counts}, want wkv6 and "
+                             f"wkv6_backward {want} each on chunked, no "
+                             f"decode_attn")
     print(f"[checkpoint] rwkv6-1.6b at full width, {cfg.n_layers} of 24 "
           f"layers ({n_params / 1e9:.3f} B parameters), B 2 x T 256, wkv6 "
-          f"on chunked once a layer and step: save {t_save:.2f} s "
+          f"and its backward kernel on chunked once a layer and step: save "
+          f"{t_save:.2f} s "
           f"(snapshot to host), the third step under the write "
           f"{1e3 * t_step:.1f} ms (the second alone {1e3 * times[1]:.1f} "
           f"ms), wait {t_wait:.2f} s, {gb:.2f} GB written "
@@ -3299,7 +3560,7 @@ def _stop_children() -> None:
 
 
 def start_dryrun(tmp: str) -> list:
-    """phase_dryrun's two command lines, started as subprocesses to run
+    """phase_dryrun's three command lines, started as subprocesses to run
     alongside phase_checkpoint (they trace fake tensors on the host)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     arch, shape = DRYRUN_CELL
@@ -3310,15 +3571,21 @@ def start_dryrun(tmp: str) -> list:
              ["repro_torch.roofline.run", "--cells", *ROOFLINE_CELLS,
               "--dryrun-json", os.path.join(tmp, "none.json"), "--out",
               os.path.join(tmp, "roofline.json")]))
+    runs += (("dryrun_c15", "dryrun " + " ".join(DRYRUN_C15_CELLS) +
+              f" at {DRYRUN_C15_LAYERS} layers",
+              ["repro_torch.launch.dryrun", "--cells", *DRYRUN_C15_CELLS,
+               "--num-layers", str(DRYRUN_C15_LAYERS), "--out",
+               os.path.join(tmp, "dryrun_c15.json")]),)
     return [(label, _start([sys.executable, "-m", *args], tmp, name, env))
             for name, label, args in runs]
 
 
 def phase_dryrun(runs: list, card: str) -> None:
-    """The launch dry run of one decode cell and the roofline of two
-    train cells on the fake 16x16 mesh of fake tensors of the card's
-    type, as their command lines run them (started by start_dryrun):
-    each exits 0 and every JSON record's status is ``ok``."""
+    """The launch dry run of one decode cell, the roofline of two train
+    cells, and the dry run of C15's cells cut to DRYRUN_C15_LAYERS layers
+    on the fake 16x16 mesh of fake tensors of the card's type, as their
+    command lines run them (started by start_dryrun): each exits 0 and
+    every JSON record's status is ``ok``."""
     for label, child in runs:
         rc, out, err, seconds = _finish(child, timeout=600)
         recs = [json.loads(ln) for ln in out.splitlines()

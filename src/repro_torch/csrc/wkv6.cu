@@ -62,6 +62,9 @@
 //      (r_t * p_t) . S_c for chunks c >= 1, where p_t is the product of
 //      the chunk's decays before step t (recomputed from w), then rounded
 //      once to r's dtype.
+// repro_wkv6_chunk_states runs passes 1 and 2 alone, for the backward
+// kernel (csrc/wkv6_backward.cu), which needs the state at each chunk's
+// entry.
 // A one-column thread, as in wkv6_kernel, reads 12 bytes of r, k and w
 // from shared memory for each (d, column, step), and shared memory's
 // bandwidth, not the float32 rate, then bounds the chunked kernels: a
@@ -629,7 +632,8 @@ template <typename T, int D>
 void launch_chunked(const void* r, const void* k, const void* v,
                     const void* w, const float* u, const float* s0, void* out,
                     float* s_out, float* local, float* L, float* W, int B,
-                    int T_len, int H, int ct, cudaStream_t stream) {
+                    int T_len, int H, int ct, bool correct,
+                    cudaStream_t stream) {
   const int n_chunks = (T_len + ct - 1) / ct;
   wkv6_local_kernel<T, D>
       <<<dim3(B * n_chunks, H), threads_of(D), 0, stream>>>(
@@ -639,7 +643,7 @@ void launch_chunked(const void* r, const void* k, const void* v,
   const size_t n = static_cast<size_t>(B) * H * D * D;
   wkv6_scan_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
                      stream>>>(L, W, s_out, B, H, D, n_chunks);
-  if (n_chunks > 1)
+  if (correct && n_chunks > 1)
     wkv6_correct_kernel<T, D>
         <<<dim3(B * (n_chunks - 1), H), threads_of(D), 0, stream>>>(
             static_cast<const T*>(r), static_cast<const T*>(w), local, L,
@@ -651,12 +655,12 @@ bool dispatch_chunked(int D, const void* r, const void* k, const void* v,
                       const void* w, const float* u, const float* s0,
                       void* out, float* s_out, float* local, float* L,
                       float* W, int B, int T_len, int H, int ct,
-                      cudaStream_t st) {
+                      bool correct, cudaStream_t st) {
   switch (D) {
-    case 16: launch_chunked<T, 16>(r, k, v, w, u, s0, out, s_out, local, L, W, B, T_len, H, ct, st); return true;
-    case 32: launch_chunked<T, 32>(r, k, v, w, u, s0, out, s_out, local, L, W, B, T_len, H, ct, st); return true;
-    case 64: launch_chunked<T, 64>(r, k, v, w, u, s0, out, s_out, local, L, W, B, T_len, H, ct, st); return true;
-    case 128: launch_chunked<T, 128>(r, k, v, w, u, s0, out, s_out, local, L, W, B, T_len, H, ct, st); return true;
+    case 16: launch_chunked<T, 16>(r, k, v, w, u, s0, out, s_out, local, L, W, B, T_len, H, ct, correct, st); return true;
+    case 32: launch_chunked<T, 32>(r, k, v, w, u, s0, out, s_out, local, L, W, B, T_len, H, ct, correct, st); return true;
+    case 64: launch_chunked<T, 64>(r, k, v, w, u, s0, out, s_out, local, L, W, B, T_len, H, ct, correct, st); return true;
+    case 128: launch_chunked<T, 128>(r, k, v, w, u, s0, out, s_out, local, L, W, B, T_len, H, ct, correct, st); return true;
   }
   return false;
 }
@@ -783,14 +787,14 @@ void launch_any_chunked(const void* r, const void* k, const void* v,
                         const void* w, const float* u, const float* s0,
                         void* out, float* s_out, float* local, float* L,
                         float* W, int B, int T_len, int H, int D, int ct,
-                        cudaStream_t st) {
+                        bool correct, cudaStream_t st) {
   const int n_chunks = (T_len + ct - 1) / ct;
   launch_any<T, false>(B * n_chunks, H, D, r, k, v, w, u, s0, out, local, L,
                        W, T_len, ct, n_chunks, st);
   const size_t n = static_cast<size_t>(B) * H * D * D;
   wkv6_scan_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
       L, W, s_out, B, H, D, n_chunks);
-  if (n_chunks > 1)
+  if (correct && n_chunks > 1)
     launch_any<T, true>(B * (n_chunks - 1), H, D, r, nullptr, nullptr, w,
                         u, nullptr, out, local, L, nullptr, T_len, ct,
                         n_chunks, st);
@@ -821,6 +825,35 @@ extern "C" int repro_wkv6(const void* r, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace {
+
+// The chunked route's passes: the local one and the scan always, the
+// correcting one when `correct` (the output); without it, slot c of L
+// holds the entry state of chunk c + 1 when the call ends (the correcting
+// pass of wkv6_any_kernel decays those states in place).
+int chunked(const void* r, const void* k, const void* v, const void* w,
+            const void* u, const void* state0, void* out, void* state_out,
+            void* local, void* L, void* W, int B, int T_len, int H, int D,
+            int ct, int dtype, bool correct, void* stream) {
+  if (ct < 1 || T_len < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const float* uf = static_cast<const float*>(u);
+  const float* s0 = static_cast<const float*>(state0);
+  float* so = static_cast<float*>(state_out);
+  float* lo = static_cast<float*>(local);
+  float* Lf = static_cast<float*>(L);
+  float* Wf = static_cast<float*>(W);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D < 1 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0 && !dispatch_chunked<float>(D, r, k, v, w, uf, s0, out, so, lo, Lf, Wf, B, T_len, H, ct, correct, st))
+    launch_any_chunked<float>(r, k, v, w, uf, s0, out, so, lo, Lf, Wf, B, T_len, H, D, ct, correct, st);
+  if (dtype == 1 && !dispatch_chunked<__nv_bfloat16>(D, r, k, v, w, uf, s0, out, so, lo, Lf, Wf, B, T_len, H, ct, correct, st))
+    launch_any_chunked<__nv_bfloat16>(r, k, v, w, uf, s0, out, so, lo, Lf, Wf, B, T_len, H, D, ct, correct, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // The chunked route: as repro_wkv6, with chunks of ct steps (ct > 0) and
 // three float32 scratch buffers from the caller, none aliasing another
 // argument: local (B, T, H, D); L (B, n_chunks, H, D, D); W (B, n_chunks,
@@ -835,19 +868,22 @@ extern "C" int repro_wkv6_chunked(const void* r, const void* k,
                                   void* out, void* state_out, void* local,
                                   void* L, void* W, int B, int T_len, int H,
                                   int D, int ct, int dtype, void* stream) {
-  if (ct < 1 || T_len < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const float* uf = static_cast<const float*>(u);
-  const float* s0 = static_cast<const float*>(state0);
-  float* so = static_cast<float*>(state_out);
-  float* lo = static_cast<float*>(local);
-  float* Lf = static_cast<float*>(L);
-  float* Wf = static_cast<float*>(W);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D < 1 || (dtype != 0 && dtype != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0 && !dispatch_chunked<float>(D, r, k, v, w, uf, s0, out, so, lo, Lf, Wf, B, T_len, H, ct, st))
-    launch_any_chunked<float>(r, k, v, w, uf, s0, out, so, lo, Lf, Wf, B, T_len, H, D, ct, st);
-  if (dtype == 1 && !dispatch_chunked<__nv_bfloat16>(D, r, k, v, w, uf, s0, out, so, lo, Lf, Wf, B, T_len, H, ct, st))
-    launch_any_chunked<__nv_bfloat16>(r, k, v, w, uf, s0, out, so, lo, Lf, Wf, B, T_len, H, D, ct, st);
-  return static_cast<int>(cudaGetLastError());
+  return chunked(r, k, v, w, u, state0, out, state_out, local, L, W, B,
+                 T_len, H, D, ct, dtype, true, stream);
+}
+
+// The state at each chunk's entry, for the backward kernel
+// (csrc/wkv6_backward.cu): repro_wkv6_chunked's arguments and its local
+// and scan passes only, after which slot c of L holds the entry state of
+// chunk c + 1 (c + 1 < n_chunks).  out receives chunk 0's outputs and
+// local the others' local outputs, which the caller drops.
+extern "C" int repro_wkv6_chunk_states(const void* r, const void* k,
+                                       const void* v, const void* w,
+                                       const void* u, const void* state0,
+                                       void* out, void* state_out,
+                                       void* local, void* L, void* W, int B,
+                                       int T_len, int H, int D, int ct,
+                                       int dtype, void* stream) {
+  return chunked(r, k, v, w, u, state0, out, state_out, local, L, W, B,
+                 T_len, H, D, ct, dtype, false, stream);
 }

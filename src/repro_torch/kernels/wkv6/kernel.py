@@ -18,6 +18,14 @@ Both routes take any head size D >= 1: D in ``HEAD_DIMS`` runs on the
 kernels instantiated for it, every other D on the source's
 ``wkv6_any_kernel`` (one thread a column of the state, D a runtime
 value), inside the same C entry points.
+
+The gradient has its own kernel (``csrc/wkv6_backward.cu``,
+``wkv6_backward_cuda``), for any D >= 1 and T >= 1, whichever route the
+forward took.  Where T spans more than one chunk of ``CHUNK_T`` steps (its
+``chunked`` route; else ``step``) the chunked route's local and scan
+kernels first recompute the state at each chunk's entry (the source's
+``repro_wkv6_chunk_states``); the kernel then walks the chunks from the
+last, one chunk's states at a time.
 """
 from __future__ import annotations
 
@@ -47,7 +55,19 @@ def _entries():
     chunked.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                         + [ctypes.c_void_p])
     chunked.restype = ctypes.c_int
-    return {"step": step, "chunked": chunked}
+    states = lib.repro_wkv6_chunk_states
+    states.argtypes = chunked.argtypes
+    states.restype = ctypes.c_int
+    return {"step": step, "chunked": chunked, "states": states}
+
+
+@functools.cache
+def _backward_entry():
+    fn = _build.load("wkv6_backward").repro_wkv6_backward
+    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def route(B: int, T: int, H: int, D: int) -> str:
@@ -129,3 +149,84 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"wkv6 kernel launch failed ({kind} route): "
                            f"CUDA error {err}")
     return out, state, kind
+
+
+def wkv6_backward_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       w: torch.Tensor, u: torch.Tensor,
+                       state0: Optional[torch.Tensor], g_out: torch.Tensor,
+                       g_state: Optional[torch.Tensor] = None):
+    """The gradients of ``wkv6_cuda``'s (out, state) given ``g_out``
+    (B, T, H, D, in r's dtype) and ``g_state`` (B, H, D, D float32, or
+    None for zeros), on the backward kernel; inputs as ``wkv6_cuda``
+    takes them.  Returns (dr, dk, dv, dw in r's dtype, du (H, D) float32,
+    dstate0 (B, H, D, D) float32, the route): ``chunked`` when T spans
+    more than one chunk, whose entry states the forward's chunked entry
+    recomputes first, else ``step``."""
+    B, T, H, D = r.shape
+    if r.dtype not in _DTYPES or any(t.dtype != r.dtype
+                                     for t in (k, v, w, g_out)):
+        raise TypeError(f"wkv6 backward kernel takes float32 or bfloat16 "
+                        f"r/k/v/w/g_out of one dtype, got {r.dtype}, "
+                        f"{k.dtype}, {v.dtype}, {w.dtype}, {g_out.dtype}")
+    if any(t is not None and t.dtype != torch.float32
+           for t in (u, state0, g_state)):
+        raise TypeError("wkv6 backward kernel takes u, state0 and g_state "
+                        "in float32")
+    if min(B, T, H, D) < 1:
+        raise ValueError(f"wkv6 backward kernel takes B, T, H, D >= 1, got "
+                         f"{tuple(r.shape)}")
+    if any(t.shape != r.shape for t in (k, v, w, g_out)) or \
+            u.shape != (H, D) or any(
+                t is not None and t.shape != (B, H, D, D)
+                for t in (state0, g_state)):
+        raise ValueError(
+            f"shapes r {tuple(r.shape)}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)}, w {tuple(w.shape)}, g_out "
+            f"{tuple(g_out.shape)}, u {tuple(u.shape)}, state0 "
+            f"{None if state0 is None else tuple(state0.shape)}, g_state "
+            f"{None if g_state is None else tuple(g_state.shape)}")
+    named = [("r", r), ("k", k), ("v", v), ("w", w), ("u", u),
+             ("g_out", g_out)]
+    named += [(n, t) for n, t in (("state0", state0), ("g_state", g_state))
+              if t is not None]
+    check_on_card(named)
+    kind = "chunked" if T > CHUNK_T else "step"
+    f32 = dict(dtype=torch.float32, device=r.device)
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.empty((H, D), **f32)
+    dstate0 = torch.empty((B, H, D, D), **f32)
+    du_part = torch.empty((B, H, D), **f32)
+    hist = torch.empty((B, H, min(T, CHUNK_T), D, D), **f32)
+    g_t = torch.empty((B, H, D, D), **f32)
+    s0 = None if state0 is None else state0.data_ptr()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        entry = None
+        if kind == "chunked":
+            if D in HEAD_DIMS and any(t.data_ptr() % 16 for t in
+                                      (r, k, v, w, u)):
+                raise ValueError("r, k, v, w and u must be 16-byte aligned")
+            # the chunk entry states, by the chunked route's local and
+            # scan passes; their outputs and final state land in dv and
+            # dstate0, which the backward kernel then overwrites
+            scratch, ptrs = _chunked_scratch(B, T, H, D, r.device)
+            err = _entries()["states"](
+                r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                u.data_ptr(), s0, dv.data_ptr(), dstate0.data_ptr(), *ptrs,
+                B, T, H, D, CHUNK_T, _DTYPES[r.dtype], stream)
+            if err != 0:
+                raise RuntimeError(f"wkv6 backward: the chunk states' "
+                                   f"launch failed: CUDA error {err}")
+            entry = ptrs[1]
+        err = _backward_entry()(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), s0, g_out.data_ptr(),
+            None if g_state is None else g_state.data_ptr(), entry,
+            dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+            du.data_ptr(), dstate0.data_ptr(), du_part.data_ptr(),
+            hist.data_ptr(), g_t.data_ptr(), B, T, H, D, CHUNK_T,
+            _DTYPES[r.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"wkv6 backward kernel launch failed ({kind} "
+                           f"route): CUDA error {err}")
+    return dr, dk, dv, dw, du, dstate0, kind

@@ -7,11 +7,11 @@ launches of each route (``kernel.route``: ``step`` or ``chunked``; the
 chunked route's three kernels are one C call and count as one launch).
 
 On the card the kernel runs inside an ``autograd.Function``: its forward
-is the kernel, its backward recomputes the recurrence through the
-differentiable plain version (``wkv6_ref``) and returns the gradients of
-r, k, v, w, u and state0.  The reference trains through its ``lax.scan``
-the same way and has no backward kernel either.  On the CPU ``wkv6_ref``
-is differentiable as it stands.
+is the kernel, its backward ``wkv6_backward``, the backward kernel
+(``csrc/wkv6_backward.cu``), which counts its own launches the same way
+(its chunk-state recompute and its passes are one launch).  The
+reference trains through its ``lax.scan`` and has no backward kernel.
+On the CPU ``wkv6_ref`` is differentiable as it stands.
 """
 from __future__ import annotations
 
@@ -20,14 +20,13 @@ from typing import Optional
 import torch
 
 from ..common import note_cost, shape_only, to_local
-from .kernel import ROUTES, wkv6_cuda
-from .ref import wkv6_ref
+from .kernel import CHUNK_T, ROUTES, wkv6_backward_cuda, wkv6_cuda
+from .ref import wkv6_backward_ref, wkv6_ref
 
 
 class _WKV6(torch.autograd.Function):
-    """The kernel's forward and a recomputing backward (see the module
-    note).  The backward holds one layer's per-step graph at a time: the
-    recurrence is rebuilt for the call being differentiated only."""
+    """The kernel's forward and the backward kernel (see the module
+    note)."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, state0):
@@ -37,24 +36,42 @@ class _WKV6(torch.autograd.Function):
         note_cost("wkv6", *wkv6_cost(*r.shape, r.element_size(),
                                      state0 is not None))
         ctx.save_for_backward(r, k, v, w, u, state0)
+        ctx.set_materialize_grads(False)    # an unused state: g_state None
         return out, state
 
     @staticmethod
     def backward(ctx, g_out, g_state):
-        inputs = ctx.saved_tensors
-        need = ctx.needs_input_grad
-        with torch.enable_grad():
-            leaves = [None if t is None else t.detach().requires_grad_(n)
-                      for t, n in zip(inputs, need)]
-            out, state = wkv6_ref(*leaves)
-            pairs = [(o, g) for o, g in ((out, g_out), (state, g_state))
-                     if g is not None]
-            wanted = [t for t, n in zip(leaves, need) if t is not None and n]
-            grads = iter(torch.autograd.grad(
-                [o for o, _ in pairs], wanted, [g for _, g in pairs],
-                allow_unused=True))
-        return tuple(next(grads) if t is not None and n else None
-                     for t, n in zip(leaves, need))
+        r = ctx.saved_tensors[0]
+        if g_out is None:
+            g_out = torch.zeros_like(r)
+        grads = wkv6_backward(*ctx.saved_tensors, g_out, g_state)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor,
+                  state0: Optional[torch.Tensor], g_out: torch.Tensor,
+                  g_state: Optional[torch.Tensor] = None):
+    """The gradients (dr, dk, dv, dw, du, dstate0) of ``wkv6``'s (out,
+    state) given ``g_out`` and ``g_state`` (None: zeros): the backward
+    kernel on CUDA tensors, the plain hand-derived version
+    (``wkv6_backward_ref``) on CPU tensors.  dr, dk, dv and dw in r's
+    dtype, du and dstate0 float32."""
+    if r.device.type == "cpu":
+        return wkv6_backward_ref(r, k, v, w, u, state0, g_out, g_state)
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv6_backward runs on CPU or CUDA tensors, not "
+                         f"{r.device}")
+    *grads, kind = wkv6_backward_cuda(
+        r, k, v, w, u, state0, g_out.to(r.dtype).contiguous(),
+        None if g_state is None else g_state.float().contiguous())
+    wkv6_backward.launches += 1
+    wkv6_backward.launches_by_route[kind] += 1
+    note_cost("wkv6 backward", *wkv6_backward_cost(
+        *r.shape, r.element_size(), state0 is not None,
+        g_state is not None))
+    return tuple(grads)
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
@@ -82,11 +99,28 @@ def wkv6_cost(B: int, T: int, H: int, D: int, itemsize: int,
             + (2 if with_state0 else 1) * 4 * B * H * D * D)
 
 
+def wkv6_backward_cost(B: int, T: int, H: int, D: int, itemsize: int,
+                       with_state0: bool, with_g_state: bool):
+    """(flops, bytes) the gradient needs, not the backward kernel's own
+    work (which repeats some of it).  Flops per (batch, head, step),
+    float32: 14 D^2 -- 3 D^2 to recompute S_{t-1} (diag(w) S + k^T v), 3
+    D^2 for G's update (diag(w) G + r^T go), 2 D^2 each for dr (S go), dk
+    (G v), dv (k G) and dw (sum_e G * S); the u terms are O(D) -- plus,
+    where T spans more than one chunk of CHUNK_T steps, 3 D^2 to
+    recompute the chunk entry states.  Bytes: r, k, v, w and g_out read
+    and dr, dk, dv and dw written once, u read and du written, the state
+    and its gradient read where given, dstate0 written."""
+    n = B * T * H * D
+    per_step = 14 + (3 if T > CHUNK_T else 0)
+    return (per_step * B * H * T * D * D,
+            9 * n * itemsize + 8 * H * D
+            + (1 + with_state0 + with_g_state) * 4 * B * H * D * D)
+
+
 class _ShapeOnlyWKV6(torch.autograd.Function):
     """wkv6 on local fake shards: empty outputs, the work reported.  Its
-    backward reports twice the forward's flops (the recurrence recomputed,
-    then its gradient pass) over the inputs, the output gradients and the
-    input gradients, and returns empty gradients."""
+    backward reports the gradient's work (``wkv6_backward_cost``) and
+    returns empty gradients."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, state0):
@@ -96,17 +130,16 @@ class _ShapeOnlyWKV6(torch.autograd.Function):
         ctx.shapes = [None if t is None else (t.shape, t.dtype)
                       for t in (r, k, v, w, u, state0)]
         ctx.size = (B, T, H, D, r.element_size())
+        ctx.set_materialize_grads(False)
         return (r.new_empty(r.shape),
                 r.new_empty((B, H, D, D), dtype=torch.float32))
 
     @staticmethod
     def backward(ctx, g_out, g_state):
-        B, T, H, D, itemsize = ctx.size
-        flops, moved = wkv6_cost(B, T, H, D, itemsize, True)
-        note_cost("wkv6 backward", 2 * flops,
-                  moved + 5 * B * T * H * D * itemsize)
-        return tuple(None if s is None else
-                     g_out.new_empty(s[0], dtype=s[1])
+        note_cost("wkv6 backward", *wkv6_backward_cost(
+            *ctx.size, ctx.shapes[5] is not None, g_state is not None))
+        like = g_out if g_out is not None else g_state
+        return tuple(None if s is None else like.new_empty(s[0], dtype=s[1])
                      for s in ctx.shapes)
 
 
@@ -142,3 +175,5 @@ def _shape_only(r, k, v, w, u, state0):
 
 wkv6.launches = 0
 wkv6.launches_by_route = dict.fromkeys(ROUTES, 0)
+wkv6_backward.launches = 0
+wkv6_backward.launches_by_route = dict.fromkeys(ROUTES, 0)

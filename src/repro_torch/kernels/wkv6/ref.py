@@ -64,3 +64,105 @@ def wkv6_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             S = torch.cumprod(wc, 1)[:, -1, :, :, None] * S + L
         outs.append(local)
     return torch.cat(outs, 1).to(r.dtype), S
+
+
+# ------------------------------------------------------------- backward
+# The recurrence's gradient, derived by hand (the backward kernel,
+# csrc/wkv6_backward.cu, computes the same; autograd through wkv6_ref is
+# the yardstick).  Per (batch, head), with S_{t-1} the state before step t
+# and G_t the gradient of the loss with respect to S_t (G_T the final
+# state's gradient, zeros when it is None):
+#     G_{t-1} = diag(w_t) G_t + r_t^T go_t
+#     dr_t[d] = sum_e S_{t-1}[d,e] go_t[e] + u[d] k_t[d] (v_t . go_t)
+#     dk_t[d] = sum_e G_t[d,e] v_t[e]     + u[d] r_t[d] (v_t . go_t)
+#     dv_t[e] = sum_d G_t[d,e] k_t[d]     + go_t[e] sum_d r_t[d] u[d] k_t[d]
+#     dw_t[d] = sum_e G_t[d,e] S_{t-1}[d,e]
+#     du[d]   = sum_{b,t} r_t[d] k_t[d] (v_t . go_t)
+#     dstate0 = G_0
+# (o_t reads S_{t-1} and the u term; S_t = diag(w_t) S_{t-1} + k_t^T v_t
+# passes G_t back through diag(w_t) and to k_t, v_t and w_t.)
+def _reverse_steps(S0, G, rf, kf, vf, wf, gof, uf):
+    """The gradient over one stretch of steps (B, n, H, D each, widened)
+    that starts from state S0 and whose end state has gradient G.
+    Returns (dr, dk, dv, dw (B, n, H, D), du (H, D), G before the
+    stretch)."""
+    states = [S0]
+    for t in range(rf.shape[1] - 1):        # S_{t-1} of each step
+        states.append(wf[:, t, :, :, None] * states[-1]
+                      + kf[:, t, :, :, None] * vf[:, t, :, None, :])
+    dr, dk, dv, dw = ([None] * rf.shape[1] for _ in range(4))
+    du = torch.zeros_like(uf)
+    for t in reversed(range(rf.shape[1])):
+        r, k, v, w, go = (a[:, t] for a in (rf, kf, vf, wf, gof))
+        vgo = (v * go).sum(-1, keepdim=True)                 # (B, H, 1)
+        S = states[t]
+        dr[t] = (S * go[..., None, :]).sum(-1) + uf * k * vgo
+        dk[t] = (G * v[..., None, :]).sum(-1) + uf * r * vgo
+        dv[t] = (G * k[..., :, None]).sum(-2) + \
+            go * (r * uf * k).sum(-1, keepdim=True)
+        dw[t] = (G * S).sum(-1)
+        du = du + (r * k * vgo).sum(0)
+        G = w[..., :, None] * G + r[..., :, None] * go[..., None, :]
+    return (*(torch.stack(g, 1) for g in (dr, dk, dv, dw)), du, G)
+
+
+def _widened(r, k, v, w, u, state0, g_out, g_state):
+    B, T, H, D = r.shape
+    wide = torch.float64 if r.dtype == torch.float64 else torch.float32
+    S0 = torch.zeros((B, H, D, D), dtype=wide, device=r.device) \
+        if state0 is None else state0.to(wide)
+    G = torch.zeros((B, H, D, D), dtype=wide, device=r.device) \
+        if g_state is None else g_state.to(wide)
+    return wide, S0, G, [a.to(wide) for a in (r, k, v, w, g_out)], \
+        u.to(wide)
+
+
+def _narrowed(r, u, state0, dr, dk, dv, dw, du, dS0):
+    """The gradients in the dtypes autograd through wkv6_ref gives (with
+    no state0, dstate0 in the dtype of the state it starts from)."""
+    return (*(g.to(r.dtype) for g in (dr, dk, dv, dw)), du.to(u.dtype),
+            dS0 if state0 is None else dS0.to(state0.dtype))
+
+
+def wkv6_backward_ref(r, k, v, w, u, state0, g_out, g_state=None):
+    """Gradients (dr, dk, dv, dw, du, dstate0) of ``wkv6_ref``'s (out,
+    state) given ``g_out`` (B, T, H, D) and ``g_state`` (B, H, D, D) or
+    None (zeros), by the equations above, every step in float32 (float64
+    for float64 r), keeping every state of the run.  dr, dk, dv and dw
+    come back in r's dtype, du in u's, dstate0 in state0's (float32, or
+    float64 for float64 r, when state0 is None), as autograd through
+    ``wkv6_ref`` gives them."""
+    _, S0, G, (rf, kf, vf, wf, gof), uf = _widened(r, k, v, w, u, state0,
+                                                   g_out, g_state)
+    dr, dk, dv, dw, du, G = _reverse_steps(S0, G, rf, kf, vf, wf, gof, uf)
+    return _narrowed(r, u, state0, dr, dk, dv, dw, du, G)
+
+
+def wkv6_backward_chunked_ref(r, k, v, w, u, state0, g_out, g_state=None,
+                              ct: int = 64):
+    """``wkv6_backward_ref`` as the backward kernel computes it: the state
+    at each chunk's entry from the forward's chunk recurrence (chunks of
+    ``ct`` steps, as ``wkv6_chunked_ref``; one state a chunk is kept),
+    then the chunks from the last to the first, each recomputing its own
+    states from its entry state and passing the gradient of its entry
+    state to the chunk before it."""
+    T = r.shape[1]
+    _, S0, G, (rf, kf, vf, wf, gof), uf = _widened(r, k, v, w, u, state0,
+                                                   g_out, g_state)
+    starts = list(range(0, T, ct))
+    entry = [S0]
+    for c0 in starts[:-1]:
+        sl = slice(c0, c0 + ct)
+        _, L = wkv6_ref(rf[:, sl], kf[:, sl], vf[:, sl], wf[:, sl], uf)
+        W = torch.prod(wf[:, sl], 1)                          # (B, H, D)
+        entry.append(W[..., None] * entry[-1] + L)
+    parts, du = [], torch.zeros_like(uf)
+    for c0, Sc in reversed(list(zip(starts, entry))):
+        sl = slice(c0, min(T, c0 + ct))
+        *grads, du_c, G = _reverse_steps(Sc, G, rf[:, sl], kf[:, sl],
+                                         vf[:, sl], wf[:, sl], gof[:, sl],
+                                         uf)
+        parts.append(grads)
+        du = du + du_c
+    dr, dk, dv, dw = (torch.cat(g[::-1], 1) for g in zip(*parts))
+    return _narrowed(r, u, state0, dr, dk, dv, dw, du, G)

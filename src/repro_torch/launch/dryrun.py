@@ -19,6 +19,8 @@ compile step, so a record's ``compile_s`` is 0.
 Usage:
     python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k
     python -m repro_torch.launch.dryrun --all [--multi-pod] [--out r.json]
+    python -m repro_torch.launch.dryrun --cells zamba2-1.2b:train_4k \
+        deepseek-v3-671b:decode_32k --num-layers 2
 """
 from __future__ import annotations
 
@@ -162,11 +164,14 @@ def lower_cell(arch: str, shape: str, mesh, *, num_layers: Optional[int]
 
 
 def run_cell(arch: str, shape: str, mesh, mesh_name: str,
-             compile_: bool = True) -> Dict[str, Any]:
+             compile_: bool = True,
+             num_layers: Optional[int] = None) -> Dict[str, Any]:
     t0 = time.time()
     rec: Dict[str, Any] = {"arch": arch, "shape": shape, "mesh": mesh_name}
+    if num_layers is not None:
+        rec["n_layers"] = num_layers
     try:
-        lowered, _meta = lower_cell(arch, shape, mesh)
+        lowered, _meta = lower_cell(arch, shape, mesh, num_layers=num_layers)
     except SkipCell as e:
         rec.update(status="skip", reason=str(e))
         return rec
@@ -192,6 +197,10 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--cells", nargs="+", default=None,
+                    help="arch:shape pairs, traced in turn")
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="trace each cell's config cut to this many layers")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--out", default=None)
@@ -208,8 +217,10 @@ def main(argv=None) -> int:
 
     if args.all:
         cells = [(a, s) for a in ARCH_IDS for s in SHAPES]
+    elif args.cells:
+        cells = [tuple(c.split(":")) for c in args.cells]
     else:
-        assert args.arch and args.shape, "--arch/--shape or --all"
+        assert args.arch and args.shape, "--arch/--shape, --cells or --all"
         cells = [(args.arch, args.shape)]
 
     results = []
@@ -220,7 +231,8 @@ def main(argv=None) -> int:
                                         device=args.device)
             for arch, shape in cells:
                 try:
-                    rec = run_cell(arch, shape, mesh, mesh_name)
+                    rec = run_cell(arch, shape, mesh, mesh_name,
+                                   num_layers=args.num_layers)
                 except Exception as e:  # noqa: BLE001 — report and continue
                     rec = {"arch": arch, "shape": shape, "mesh": mesh_name,
                            "status": "FAIL",

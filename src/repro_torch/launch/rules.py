@@ -15,8 +15,9 @@ DTensor, call it; nothing outside a DTensor program is affected):
     kept out of the dry run's fake mode and counters (below).
 
 :class:`ModelGaps`, a function mode the dry run enters around each
-trace, gives four of the models' plain-tensor idioms a DTensor form
-(below), so the models keep one path.
+trace, gives six of the models' plain-tensor idioms a DTensor form, and
+works around the ops some torch versions' DTensor refuses (below), so the
+models keep one path.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from typing import Any, Sequence
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.overrides import TorchFunctionMode
 
 
@@ -175,10 +176,10 @@ def install() -> None:
 
 
 # ------------------------------------------------- the models' DTensor gaps
-# The models index, write and reshape as plain tensors do.  Four of those
-# idioms have no DTensor rule that holds on every torch version, and the
-# layout each takes here follows from what the model means, which an
-# op's sharding rule cannot see:
+# The models index, write, reshape and contract as plain tensors do.  Six
+# of those idioms have no DTensor rule that holds on every torch version,
+# and the layout each takes here follows from what the model means, which
+# an op's sharding rule cannot see:
 #
 #   * ``table[ids]`` on a 2-D table (an embedding lookup).  DTensor's
 #     vocab-parallel lookup and the gradient of indexing (an accumulating
@@ -199,9 +200,20 @@ def install() -> None:
 #     than the split's leading factor divides (heads from a sharded
 #     projection at MQA / GQA, or tokens back into (B, T) after MoE):
 #     the mesh dimensions past those the factor divides are replicated
-#     first.
+#     first;
+#   * ``torch.einsum`` where DTensor would gather a sharded operand chunk
+#     by chunk, or refuses (``einsum`` below): on the local shards;
+#   * ``x @ w`` in training, with the weight sharded on a mesh dimension
+#     that also shards the batch (FSDP).  DTensor picks the cheaper move,
+#     and where the activation is the smaller (a microbatch, one row a
+#     device) it moves the activation, so every device of the data axis
+#     repeats the product.  The weight is gathered there first, as FSDP
+#     does.  Serving, which trains nothing, keeps DTensor's choice.
 #
-# The mode acts only where a DTensor takes part; all else passes as it is.
+# Where a torch version's DTensor refuses an op for want of a layout
+# (below: a merged sharded dimension, a shard made partial), the operands
+# are brought to one it takes first.  The mode acts only where a DTensor
+# takes part; all else passes as it is.
 class ModelGaps(TorchFunctionMode):
     """Entered around a DTensor trace of the models (see above)."""
 
@@ -221,8 +233,18 @@ class ModelGaps(TorchFunctionMode):
         elif func is torch.Tensor.reshape and _is_dt(args[0]):
             shape = args[1] if len(args) == 2 and \
                 isinstance(args[1], (tuple, list)) else args[1:]
-            return func(fit_splits(args[0], shape), shape)
-        return func(*args, **kwargs)
+            return reshape(args[0], shape)
+        elif func is torch.einsum and any(_is_dt(a) for a in args[1:]):
+            return einsum(args[0], *args[1:])
+        elif func in (torch.Tensor.matmul, torch.matmul) \
+                and len(args) == 2 and all(_is_dt(a) for a in args):
+            return matmul(*args)
+        try:
+            return func(*args, **kwargs)
+        except RuntimeError as e:
+            if not _refuses_partial(e):
+                raise
+        return func(*_reduced(args), **_reduced(kwargs))
 
 
 def _is_dt(t: Any) -> bool:
@@ -258,6 +280,20 @@ def write_layer(stack: DTensor, i: int, value: torch.Tensor) -> None:
     layer.copy_(value)
 
 
+def matmul(x: DTensor, w: DTensor) -> DTensor:
+    """``x @ w``; where ``w`` is a trained weight (2-D, requiring grad)
+    sharded on a mesh dimension that also shards ``x``'s batch (its dim
+    0), ``w`` is gathered there first, as FSDP gathers a weight before
+    its use."""
+    if x.ndim < 2 or w.ndim != 2 or not w.requires_grad:
+        return x @ w
+    whole = [Replicate() if isinstance(q, Shard) and p == Shard(0) else q
+             for p, q in zip(x.placements, w.placements)]
+    if whole != list(w.placements):
+        w = w.redistribute(w.device_mesh, whole)
+    return x @ w
+
+
 def write_positions(cache: DTensor, positions: torch.Tensor,
                     values: torch.Tensor, dim: int) -> None:
     """``cache[b, ..., positions[b, t], ...] = values[b, t, ...]`` with the
@@ -286,6 +322,147 @@ def write_positions(cache: DTensor, positions: torch.Tensor,
     local.scatter_(dim, index, torch.where(inside.view(shape), vals, keep))
 
 
+def einsum(equation: str, *operands):
+    """``torch.einsum`` with a DTensor operand: on the local shards
+    (``einsum_on_shards``) where a mesh dimension holds a partial operand
+    that lacks the letter another operand is sharded on there (DTensor
+    then gathers the sharded operand, at MQA's G 48 chunk by chunk), or
+    where DTensor refuses the einsum's flattening of a sharded dimension
+    (torch 2.11); else DTensor's own einsum."""
+    specs = equation.replace(" ", "").partition("->")[0].split(",")
+    dts = [(s, a.placements) for s, a in zip(specs, operands) if _is_dt(a)]
+    for m in range(len(dts[0][1])):
+        sharded = {s[p[m].dim] for s, p in dts if type(p[m]) is Shard}
+        if any(p[m].is_partial() and not sharded <= set(s)
+               for s, p in dts):
+            out = einsum_on_shards(equation, *operands)
+            if out is not None:
+                return out
+            break
+    try:
+        return torch.einsum(equation, *operands)
+    except RuntimeError as e:
+        if not _refuses_flatten(e):
+            raise
+    out = einsum_on_shards(equation, *operands)
+    if out is None:
+        raise RuntimeError(f"einsum {equation}: no local form for "
+                           f"{[p for _, p in dts]}")
+    return out
+
+
+def einsum_on_shards(equation: str, *operands):
+    """``torch.einsum(equation, *operands)`` computed on the local shards,
+    or None for a placement other than shard, replicate or a partial sum.
+    On each mesh dimension: the letter the largest operand sharded there
+    is sharded on shards every operand that has it (a replicated one is
+    sliced, one sharded on another letter regathered, a partial one
+    reduce-scattered) and the others are replicated; the output is sharded
+    on the letter, or partial where the letter is summed over.  With no
+    shard the largest partial operand stays partial, and so does the
+    output (an einsum is linear in each operand), the others being
+    reduced."""
+    lhs, _, out = equation.replace(" ", "").partition("->")
+    specs = lhs.split(",")
+    if not out or "." in equation or len(specs) != len(operands):
+        return None
+    mesh = next(a.device_mesh for a in operands if _is_dt(a))
+    ops = [a if _is_dt(a) else DTensor.from_local(
+        a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        for a in operands]
+    by_size = sorted(range(len(ops)), key=lambda i: -ops[i].numel())
+    want = [list(a.placements) for a in ops]
+    out_pl = []
+    for m in range(mesh.ndim):
+        pls = [a.placements[m] for a in ops]
+        if any(not (type(p) is Shard or p.is_replicate() or (
+                p.is_partial() and p.reduce_op in ("sum", "avg")))
+               for p in pls):
+            return None
+        sharded = [i for i in by_size if type(pls[i]) is Shard]
+        partial = [i for i in by_size if pls[i].is_partial()]
+        if sharded:
+            letter = specs[sharded[0]][pls[sharded[0]].dim]
+            for i, s in enumerate(specs):
+                want[i][m] = Shard(s.index(letter)) if letter in s else \
+                    Replicate()
+            out_pl.append(Shard(out.index(letter)) if letter in out
+                          else Partial())
+        elif partial:
+            for i in partial[1:]:
+                want[i][m] = Replicate()
+            out_pl.append(pls[partial[0]])
+        else:
+            out_pl.append(Replicate())
+    sizes = {c: n for s, a in zip(specs, ops) for c, n in zip(s, a.shape)}
+    local = torch.einsum(equation, *(
+        (a.redistribute(mesh, pl) if list(a.placements) != pl else a)
+        .to_local() for a, pl in zip(ops, want)))
+    shape = torch.Size(sizes[c] for c in out)
+    order = sorted(range(local.ndim), key=lambda d: -local.stride(d))
+    stride, step = [0] * local.ndim, 1
+    for d in reversed(order):
+        stride[d], step = step, step * shape[d]
+    return DTensor.from_local(local, mesh, out_pl, run_check=False,
+                              shape=shape, stride=tuple(stride))
+
+
+# torch 2.11's DTensor refuses two things later versions do: a view that
+# merges dimensions where one past the first is sharded ("Attempted to
+# flatten multiple dimensions"; later versions keep a strided shard), and
+# an op whose rule wants a sharded operand made partial ("redistribute from
+# S(0) to P(sum) not supported yet"; zamba2's causal convolution).  Where
+# it refuses, the merged dimensions are replicated, and the partial
+# operands reduced, first; where it does not, nothing changes, so a
+# version whose DTensor traces these keeps its own layouts and counts.
+def _refuses_flatten(e: Exception) -> bool:
+    return "Attempted to flatten" in str(e)
+
+
+def _refuses_partial(e: Exception) -> bool:
+    return "to P(" in str(e) and "not supported" in str(e)
+
+
+def _reduced(tree):
+    """``tree`` with every partial DTensor in it reduced (replicated on
+    the mesh dimensions where it was partial)."""
+    from torch.utils._pytree import tree_map
+
+    def one(t):
+        if not _is_dt(t) or not any(p.is_partial() for p in t.placements):
+            return t
+        return t.redistribute(t.device_mesh, [
+            Replicate() if p.is_partial() else p for p in t.placements])
+    return tree_map(one, tree)
+
+
+def reshape(t: DTensor, shape: Sequence[int]) -> DTensor:
+    """``t.reshape(shape)`` after ``fit_splits``; where DTensor refuses to
+    merge a sharded dimension into the one before it, that dimension is
+    replicated first."""
+    t = fit_splits(t, shape)
+    try:
+        return t.reshape(shape)
+    except RuntimeError as e:
+        if not _refuses_flatten(e):
+            raise
+    shape = _resolved(t, shape)
+    merged = {d for a, b in _split_groups(list(t.shape), shape)
+              if len(a) > 1 for d in a[1:]}
+    return t.redistribute(t.device_mesh, [
+        Replicate() if isinstance(p, Shard) and p.dim in merged else p
+        for p in t.placements]).reshape(shape)
+
+
+def _resolved(t, shape: Sequence[int]) -> list:
+    """``shape`` with its -1 resolved against ``t``'s size."""
+    shape = [int(n) for n in shape]
+    if -1 in shape:
+        known = math.prod(n for n in shape if n != -1)
+        shape[shape.index(-1)] = t.numel() // max(known, 1)
+    return shape
+
+
 def _split_groups(old: Sequence[int], new: Sequence[int]):
     """A reshape's groups: (old dims, new dims) whose sizes multiply to
     the same number, in order."""
@@ -312,10 +489,7 @@ def fit_splits(t: DTensor, shape: Sequence[int]) -> DTensor:
     """``t`` with every dimension that ``reshape(shape)`` splits sharded
     only over the leading mesh dimensions whose sizes the split's first
     factor divides; the rest replicated."""
-    shape = [int(n) for n in shape]
-    if -1 in shape:
-        known = math.prod(n for n in shape if n != -1)
-        shape[shape.index(-1)] = t.numel() // max(known, 1)
+    shape = _resolved(t, shape)
     mesh, placements = t.device_mesh, list(t.placements)
     changed = False
     for a, b in _split_groups(list(t.shape), shape):

@@ -15,6 +15,7 @@ MoE aux included, and there is no ``metrics["moe_aux"]``.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -79,6 +80,26 @@ def _backward(loss_fn, params: nn.Module, batch: Batch):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}
 
 
+def microbatch(x: torch.Tensor, n: int, i: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``n`` of a batch tensor: rows [i B / n, (i + 1)
+    B / n), as the reference splits it.  Of a DTensor (the launch dry
+    run), the ``i``-th of ``n`` equal parts of each device's own rows, in
+    the batch's placements: every device keeps its share of the work and
+    no row moves, and the ``n`` parts together are the batch, as the
+    plain split's are (only which rows share a microbatch differs, which
+    the accumulated step does not see)."""
+    if not hasattr(x, "device_mesh"):
+        return x.reshape(n, -1, *x.shape[1:])[i]
+    from torch.distributed.tensor import DTensor
+    local = x.to_local()
+    part = local.reshape(n, -1, *local.shape[1:])[i]
+    shape = (x.shape[0] // n, *x.shape[1:])
+    stride = tuple(math.prod(shape[d + 1:]) for d in range(len(shape)))
+    return DTensor.from_local(part, x.device_mesh, x.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=stride)
+
+
 def make_train_step(model: Model, opt_cfg: optim.OptConfig,
                     num_microbatches: int = 1,
                     logits_spec: Optional[Tuple[Any, Any]] = None):
@@ -97,15 +118,15 @@ def make_train_step(model: Model, opt_cfg: optim.OptConfig,
             loss, metrics = _backward(loss_fn, params, batch)
             grads = {n: p.grad for n, p in named.items()}
         else:
-            acc = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device) for n, p in named.items()}
+            acc = {n: torch.zeros_like(p, dtype=torch.float32)
+                   for n, p in named.items()}
             total = torch.zeros((), dtype=torch.float32, device=model.device)
             for i in range(num_microbatches):
-                part = {k: v.reshape(num_microbatches, -1, *v.shape[1:])[i]
+                part = {k: microbatch(v, num_microbatches, i)
                         for k, v in batch.items()}
                 loss_i, _metrics = _backward(loss_fn, params, part)
                 for n, p in named.items():
-                    acc[n] += p.grad.float()
+                    acc[n] = acc[n] + p.grad.float()
                 total = total + loss_i
             grads = {n: a / num_microbatches for n, a in acc.items()}
             for n, p in named.items():

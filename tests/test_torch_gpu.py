@@ -24,7 +24,7 @@ from repro_torch.kernels.qgemm_int8.ref import (int_matmul_ref, qgemm_ref,
                                                 quantize_rowwise)
 from repro_torch.kernels.wkv6.kernel import CHUNK_T
 from repro_torch.kernels.wkv6.kernel import route as wkv6_route
-from repro_torch.kernels.wkv6.ops import wkv6
+from repro_torch.kernels.wkv6.ops import wkv6, wkv6_backward
 from repro_torch.kernels.wkv6.ref import wkv6_ref
 
 
@@ -385,6 +385,95 @@ def test_wkv6_counts_launches_by_route(B, T, want):
             wkv6.launches_by_route.items()} == {
                 kind: int(kind == want) for kind in before[0]}
     _wkv6_close(got, wkv6_ref(r, k, v, w, u, s0), torch.bfloat16)
+
+
+def _wkv6_grads(r, k, v, w, u, s0, go, gs, wide):
+    """Gradients of (r, k, v, w, u, state0) by autograd through wkv6_ref
+    on the inputs as given (``wide`` None: their own dtypes, the plain
+    backward) or widened to ``wide``."""
+    ins = [a if wide is None else a.to(wide) for a in (r, k, v, w, u)]
+    ins += [None if s0 is None else (s0 if wide is None else s0.to(wide))]
+    ins = [None if a is None else a.detach().requires_grad_() for a in ins]
+    out, st = wkv6_ref(*ins)
+    outs = [(out, go)] + ([(st, gs)] if gs is not None else [])
+    wanted = [a for a in ins if a is not None]
+    grads = torch.autograd.grad(
+        [o for o, _ in outs],
+        wanted, [g if wide is None else g.to(wide) for _, g in outs])
+    return list(grads) + ([None] if s0 is None else [])
+
+
+def _wkv6_grads_held(got, inputs):
+    """Each gradient against float64 autograd through wkv6_ref within the
+    larger of 1e-4 of its largest |g| and the plain backward's own error
+    (autograd through wkv6_ref in the inputs' dtypes, float32 arithmetic,
+    each gradient rounded once to its dtype, as the kernel's is)."""
+    exact = _wkv6_grads(*inputs, torch.float64)
+    plain = _wkv6_grads(*inputs, None)
+    for name, g, e, p in zip("r k v w u state0".split(), got, exact, plain):
+        if e is None:
+            continue
+        assert g.dtype == p.dtype, name
+        tol = max(1e-4 * e.abs().max().item(),
+                  (p.double() - e).abs().max().item())
+        err = (g.double() - e).abs().max().item()
+        assert err <= tol, (name, err, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,D,decays,with_state", [
+    (2, 256, 32, 64, (0.9, 0.999), False),     # rwkv6-1.6b's training shape
+    (2, 48, 4, 80, (0.9, 0.999), True),        # the step route, D 80
+    (1, 1, 2, 16, (0.9, 0.999), True),
+    (2, CHUNK_T, 3, 32, (1e-4, 0.05), True),   # one whole chunk
+    (2, 130, 3, 64, (0.999, 0.99999), True),   # a ragged last chunk
+    (1, 100, 2, 48, (0.9, 0.999), True),       # registers, masked to D
+    (1, 200, 2, 256, (0.9, 0.999), False)])
+def test_wkv6_backward_kernel_matches_plain(B, T, H, D, decays, with_state,
+                                            dtype):
+    """The Function's backward on the card (the backward kernel, on the
+    route T gives it), both forward routes, D on the register kernel (up
+    to 64) and past it, against float64 autograd through wkv6_ref."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    r, k, v, w, u, s0 = _wkv6_inputs(B, T, H, D, dtype, seed=T + D,
+                                     decays=decays)
+    s0 = s0 if with_state else None
+    gen = torch.Generator(device="cuda").manual_seed(T)
+    go = torch.randn((B, T, H, D), generator=gen, device="cuda").to(dtype)
+    gs = torch.randn((B, H, D, D), generator=gen, device="cuda") \
+        if with_state else None
+    ins = [a.detach().requires_grad_() for a in (r, k, v, w, u)]
+    ins.append(None if s0 is None else s0.detach().requires_grad_())
+    before = wkv6_backward.launches, dict(wkv6_backward.launches_by_route)
+    out, st = wkv6(*ins)
+    outs = [(out, go)] + ([(st, gs)] if gs is not None else [])
+    got = list(torch.autograd.grad([o for o, _ in outs],
+                                   [a for a in ins if a is not None],
+                                   [g for _, g in outs]))
+    torch.cuda.synchronize()
+    kind = "chunked" if T > CHUNK_T else "step"
+    assert wkv6_backward.launches == before[0] + 1
+    assert wkv6_backward.launches_by_route[kind] == before[1][kind] + 1
+    _wkv6_grads_held(got + ([None] if s0 is None else []),
+                     (r, k, v, w, u, s0, go, gs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [40, 300])
+def test_wkv6_backward_kernel_is_deterministic(T):
+    """Two calls on the same inputs give the same gradients bit for bit
+    (no atomics: each element is summed by one thread in a fixed order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    r, k, v, w, u, s0 = _wkv6_inputs(2, T, 4, 64, torch.bfloat16, seed=T)
+    go = torch.randn((2, T, 4, 64), device="cuda").bfloat16()
+    gs = torch.randn((2, 4, 64, 64), device="cuda")
+    first = wkv6_backward(r, k, v, w, u, s0, go, gs)
+    second = wkv6_backward(r, k, v, w, u, s0, go, gs)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.gpu
@@ -1106,11 +1195,10 @@ def test_wkv6_any_head_size_matches_plain(T, D, dtype):
 @pytest.mark.parametrize("T", [16, 128])
 @pytest.mark.parametrize("D", [64, 80])
 def test_wkv6_gradients_match_autograd_through_plain(D, T):
-    """The autograd Function around the kernel: its gradients of r, k, v,
-    w, u and state0 against autograd through ``wkv6_ref``, float32, 1e-4.
-    Its backward is that same autograd, so this holds the Function's
-    plumbing; ``test_rwkv6_train_gradients_kernel_match_plain`` holds the
-    gradients the kernel's forward leads to."""
+    """The autograd Function around the kernels: its gradients of r, k,
+    v, w, u and state0 (the backward kernel's) against autograd through
+    ``wkv6_ref``, float32, 1e-4; ``test_rwkv6_train_gradients_kernel_
+    match_plain`` holds the gradients the kernels lead to in a model."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     ins = [t.requires_grad_() for t in

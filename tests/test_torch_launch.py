@@ -371,3 +371,232 @@ def test_index_put_rule_replicates_or_shards_trailing_dims():
     for op in (torch.ops.aten.index_put_.default,
                torch.ops.aten.index_put.default):
         assert rules._has_strategy(prop, op)
+
+
+# ---------------------------------------------- C15: the dry run's repairs
+def test_granite_prefill_takes_the_local_einsum(monkeypatch):
+    """granite-34b's prefill_32k at full width, cut to one layer (the
+    fault is per layer), on the 16x16 production mesh, where its
+    attention einsum at MQA's G 48 meets a partial V beside probabilities
+    sharded on G: computed on the local shards, with V reduced, instead
+    of DTensor gathering the probabilities chunk by chunk (a 32768-piece
+    strided shard; minutes a layer, past 1200 s at 88 layers)."""
+    from repro_torch.launch import rules
+    from repro_torch.launch.mesh import make_production_mesh
+    seen = []
+    local = rules.einsum_on_shards
+
+    def spy(equation, *operands):
+        seen.append(equation)
+        return local(equation, *operands)
+
+    monkeypatch.setattr(rules, "einsum_on_shards", spy)
+    mesh = make_production_mesh(device="cpu")
+    try:
+        rec = dryrun.run_cell("granite-34b", "prefill_32k", mesh, "16x16",
+                              num_layers=1)
+    finally:
+        release()
+    assert rec["status"] == "ok" and rec["n_layers"] == 1
+    assert seen == ["bhgts,bshd->bthgd"]
+    # the probabilities (32 x 48 x 32768^2 float32) are never gathered
+    assert rec["collective_bytes"]["all-gather"] < 32 * 48 * 32768 ** 2 * 4 / 256
+
+
+def _dt(mesh, shape, placements, dtype=torch.float32):
+    from torch.distributed.tensor import DTensor, Shard
+    local = list(shape)
+    for size, p in zip(mesh.shape, placements):
+        if isinstance(p, Shard):
+            local[p.dim] //= size
+    return DTensor.from_local(torch.empty(local, dtype=dtype), mesh,
+                              placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape).stride())
+
+
+def test_einsum_on_shards_layouts(mesh):
+    """The local einsum's placements: an operand's shard letter shards the
+    others that have it and the output (partial where it is summed over);
+    of two letters on one mesh dimension the larger operand's wins; the
+    largest partial operand stays partial; and the local product has the
+    local shapes."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.launch.rules import einsum_on_shards
+    with FakeTensorMode():
+        p = _dt(mesh, (4, 1, 8, 6, 6), [Shard(0), Shard(2)])
+        v = _dt(mesh, (4, 6, 1, 16), [Shard(0), Partial()])
+        out = einsum_on_shards("bhgts,bshd->bthgd", p, v)
+        assert tuple(out.shape) == (4, 6, 1, 8, 16)
+        assert out.placements == (Shard(0), Shard(3))
+        assert tuple(out.to_local().shape) == (2, 6, 1, 4, 16)
+        q = _dt(mesh, (4, 1, 8, 16), [Partial(), Shard(2)])
+        k = _dt(mesh, (4, 64, 8, 16), [Partial(), Shard(0)])
+        out = einsum_on_shards("bthd,bshd->bhts", q, k)
+        assert tuple(out.shape) == (4, 8, 1, 64)
+        assert out.placements == (Partial(), Shard(0))
+        a = _dt(mesh, (8, 16), [Replicate(), Shard(1)])
+        b = _dt(mesh, (16, 4), [Replicate(), Replicate()])
+        out = einsum_on_shards("ij,jk->ik", a, b)
+        assert out.placements == (Replicate(), Partial())
+        assert tuple(out.to_local().shape) == (8, 4)
+
+
+def test_refused_flatten_replicates_the_merged_dimension(mesh, monkeypatch):
+    """Where DTensor refuses a view that merges a sharded dimension into
+    the one before it (torch 2.11: MoE's k-major choices), ``reshape``
+    replicates that dimension first; elsewhere it is DTensor's own."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.launch import rules
+    own = DTensor.reshape
+
+    def refusing(self, *shape):
+        if any(isinstance(p, Shard) and p.dim > 0 for p in self.placements):
+            raise RuntimeError("('Attempted to flatten multiple dimensions, "
+                               "with dimension 1 being sharded. ', '...')")
+        return own(self, *shape)
+
+    monkeypatch.setattr(DTensor, "reshape", refusing)
+    with FakeTensorMode():
+        x = _dt(mesh, (2, 16, 8), [Shard(1), Replicate()])
+        y = rules.reshape(x, (-1, 8))
+        assert tuple(y.shape) == (32, 8)
+        assert y.placements == (Replicate(), Replicate())
+        z = rules.reshape(_dt(mesh, (4, 16), [Shard(0), Replicate()]),
+                          (2, 2, 16))
+        assert z.placements == (Shard(0), Replicate())
+
+
+def test_refused_einsum_runs_on_the_local_shards(mesh, monkeypatch):
+    """Where DTensor refuses an einsum's flattening of a sharded dimension
+    (torch 2.11: MLA's attention at decode), the einsum runs on the local
+    shards."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+    from repro_torch.launch import rules
+    own = torch.einsum
+
+    def refusing(equation, *operands):
+        if any(isinstance(a, DTensor) for a in operands):
+            raise RuntimeError("('Attempted to flatten multiple dimensions, "
+                               "with dimension 1 being sharded. ', '...')")
+        return own(equation, *operands)
+
+    monkeypatch.setattr(torch, "einsum", refusing)
+    with FakeTensorMode():
+        q = _dt(mesh, (4, 1, 8, 16), [Partial(), Shard(2)])
+        k = _dt(mesh, (4, 64, 8, 16), [Shard(0), Shard(2)])
+        out = rules.einsum("bthd,bshd->bhts", q, k)
+    assert tuple(out.shape) == (4, 8, 1, 64)
+    assert out.placements == (Shard(0), Shard(1))
+
+
+def test_refused_partial_is_reduced_first():
+    """DTensor's refusal to make a sharded operand partial (torch 2.11:
+    zamba2's causal convolution) is recognised, and ``_reduced`` turns
+    every partial DTensor of the arguments into a replicated one."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.launch import rules
+    assert rules._refuses_partial(RuntimeError(
+        "redistribute from S(0) to P(sum) not supported yet"))
+    assert not rules._refuses_partial(RuntimeError("shapes differ"))
+    m = fake_mesh((2, 2), ("data", "model"), device="cpu")
+    try:
+        with FakeTensorMode():
+            a = _dt(m, (4, 8), [Shard(0), Partial()])
+            b = _dt(m, (4, 8), [Shard(0), Replicate()])
+            ra, rb, n = rules._reduced((a, b, 3))
+        assert ra.placements == (Shard(0), Replicate()) and rb is b and n == 3
+    finally:
+        release()
+
+
+def test_microbatch_split_of_plain_and_distributed_batches(mesh):
+    """A plain batch splits into its consecutive rows, as the reference
+    splits it; a DTensor batch into the same part of each device's rows,
+    in the batch's placements, so each microbatch keeps every device's
+    share of the work."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.train.step import microbatch
+    x = torch.arange(8 * 3).reshape(8, 3)
+    assert torch.equal(microbatch(x, 4, 1), x[2:4])
+    local = torch.arange(4 * 3).reshape(4, 3)
+    d = DTensor.from_local(local, mesh, [Shard(0), Replicate()],
+                           run_check=False, shape=torch.Size((8, 3)),
+                           stride=(3, 1))
+    part = microbatch(d, 2, 1)
+    assert tuple(part.shape) == (4, 3)
+    assert part.placements == (Shard(0), Replicate())
+    assert torch.equal(part.to_local(), local[2:4])
+
+
+@pytest.mark.parametrize("variant", ["mb4", "mb8", "mb16", "mb8+logits",
+                                     "mb16+logits"])
+def test_hillclimb_microbatch_variants_trace(variant, mesh, monkeypatch):
+    """Each microbatched variant of the hill-climb traces reduced
+    llama3.2-1b's train step on the 2x2 mesh with the one-microbatch
+    step's flops (its own ``logits`` twin's for +logits), and its
+    temporaries shrink with the microbatches: under 1.25 / n of the
+    one-microbatch step's."""
+    from repro_torch.roofline import hillclimb
+    monkeypatch.setattr(dryrun, "get_config",
+                        lambda arch: get_config(arch).reduced())
+    base = "logits" if variant.endswith("+logits") else "baseline"
+    got = {name: hillclimb.eval_variant("llama3.2-1b", "train_4k", mesh,
+                                        hillclimb.VARIANTS[name])
+           for name in (base, variant)}
+    n = hillclimb.VARIANTS[variant]["microbatches"]
+    assert got[variant]["gflops"] == got[base]["gflops"]
+    assert got[variant]["temp_gb"] <= 1.25 * got[base]["temp_gb"] / n
+
+
+def test_matmul_gathers_a_weight_sharded_with_the_batch(mesh):
+    """Under the dry run's function mode ``x @ w`` gathers a trained 2-D
+    weight along the mesh dimensions that shard ``x``'s batch (FSDP), so
+    the product keeps the batch sharded where DTensor alone, the
+    activation being the smaller, would move it instead (and repeat the
+    product on every device of the data axis); a weight sharded
+    elsewhere, one that is not trained (serving), or a product of two
+    activations keeps DTensor's own layouts."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.launch import rules
+    rules.install()
+    with FakeTensorMode():
+        x = _dt(mesh, (2, 2, 8), [Shard(0), Shard(2)])
+        w = _dt(mesh, (8, 256), [Shard(1), Shard(0)])
+        frozen = w.detach()
+        w.requires_grad_(True)
+        other = _dt(mesh, (8, 256), [Replicate(), Shard(0)])
+        other.requires_grad_(True)
+        with rules.ModelGaps():
+            y = x @ w
+            z = torch.matmul(x, other)
+            served = x @ frozen
+        assert tuple(y.shape) == (2, 2, 256)
+        assert y.placements == (Shard(0), Partial())
+        assert z.placements == (Shard(0), Partial())
+        assert served.placements == (x @ frozen).placements
+        b = _dt(mesh, (2, 8, 6), [Shard(0), Shard(1)])
+        assert rules.matmul(x, b).placements == (x @ b).placements
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_microbatches_keep_the_flops_at_one_row_a_device(n, mesh,
+                                                         monkeypatch):
+    """Reduced llama3.2-1b's train step on the 2x2 mesh at B 8 x T 32,
+    where ``n`` 4 leaves each device one row a microbatch and a
+    microbatch's activations are smaller than the weights they meet:
+    the step's flops equal the one-microbatch step's (DTensor alone would
+    gather the activations and repeat the products on every device of the
+    data axis: 6.3% and 10.4% more flops) and its temporaries shrink."""
+    from repro_torch.configs.registry import ShapeCell
+    monkeypatch.setattr(dryrun, "get_config",
+                        lambda arch: get_config(arch).reduced())
+    monkeypatch.setitem(dryrun.SHAPES, "train_tiny",
+                        ShapeCell("train_tiny", 32, 8, "train"))
+    got = {}
+    for mb in (1, n):
+        lowered, _ = dryrun.lower_cell("llama3.2-1b", "train_tiny", mesh,
+                                       microbatches=mb)
+        got[mb] = (cost_terms(lowered.trace)["flops"], lowered.temp_bytes)
+    assert got[n][0] == got[1][0]
+    assert got[n][1] < got[1][1]

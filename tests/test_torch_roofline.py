@@ -189,3 +189,30 @@ def test_hillclimb_variants(monkeypatch, cleanup):
                           "coll_gb", "compile_s"}
         assert m["gflops"] > 0
     assert got["baseline"]["gflops"] == got["logits"]["gflops"]
+
+
+def test_wkv6_shape_only_reports_forward_and_backward_formulas():
+    """wkv6's shape-only branch under autograd: the forward's formula and
+    the gradient's (the reverse pass, plus the chunk states' recompute
+    where T spans more than one chunk), nothing launched."""
+    from repro_torch.kernels.wkv6.kernel import CHUNK_T
+    from repro_torch.kernels.wkv6.ops import (wkv6, wkv6_backward,
+                                              wkv6_backward_cost, wkv6_cost)
+    before = (wkv6.launches, wkv6_backward.launches)
+    for T, with_state0 in ((CHUNK_T, False), (3 * CHUNK_T + 1, True)):
+        B, H, D = 2, 3, 16
+        with FakeTensorMode(), TraceCounter() as trace:
+            ins = [torch.empty(B, T, H, D, dtype=torch.bfloat16,
+                               requires_grad=True) for _ in range(4)]
+            ins.append(torch.empty(H, D, requires_grad=True))
+            ins.append(torch.empty(B, H, D, D, requires_grad=True)
+                       if with_state0 else None)
+            out, _state = wkv6(*ins)
+            out.float().sum().backward()
+        assert trace.kernels == {"wkv6": 1, "wkv6 backward": 1}
+        fwd = wkv6_cost(B, T, H, D, 2, with_state0)
+        bwd = wkv6_backward_cost(B, T, H, D, 2, with_state0, False)
+        assert bwd[0] == (14 + (3 if T > CHUNK_T else 0)) * B * H * T * D * D
+        assert trace.flops >= fwd[0] + bwd[0]
+        assert trace.flops - (fwd[0] + bwd[0]) < 1e-3 * bwd[0]
+    assert (wkv6.launches, wkv6_backward.launches) == before
