@@ -17,12 +17,15 @@
    C10): decode_attn at head_dims 80, 96 and 256 (float32 and bf16, G 1
    and 4, a row of length 0, S 600) and wkv6 at D 80 and 256 on both
    routes (T 16 and 256), on their any-D kernels.  Then the wkv6
-   backward kernel against float64 autograd through the plain
+   backward kernels against float64 autograd through the plain
    recurrence (each gradient within the larger of 1e-4 of its max|g|
    and the plain backward's own error): at the training shape (B 2, T
    256) in bf16 and float32 with decays as the model draws them, near 0
-   and near 1, and at T 48, D 80 from a nonzero state; two calls equal
-   bit for bit; timed beside the plain backward.
+   and near 1 (the parallel route), and from a nonzero state at T 100, D
+   64 (parallel) and T 48, D 80 (the first kernel's step route); two
+   calls equal bit for bit; timed beside the first kernel's chunked
+   route on the same inputs (prev_ms) and the plain backward, split by
+   pass.
 3. The Table-I kernels (phase_table1_kernels): gemm_os at llama3.2-1b's
    ffn_in GEMM site (prefill in bf16 and float32, decode in bf16, the
    fused bias+silu and bias+gelu epilogues in both types, a ragged
@@ -129,7 +132,8 @@
 11. Trains llama3.2-1b (16 layers, B 4 x T 1024, 6 steps, then one
    2-microbatch step whose loss is within 1% of the unbatched one) and
    rwkv6-1.6b (24 layers, B 2 x T 256, 4 steps, wkv6 on the chunked
-   route and its backward kernel once a layer and step each, the plain
+   route and its backward kernels on the parallel route once a layer and
+   step each, the plain
    versions patched to raise) at full size through repro_torch.train
    (phase_train): losses finite and falling, ms a step, tokens/s, peak
    GiB, the rwkv6 step's split: forward, backward, backward kernel;
@@ -336,6 +340,11 @@ WKV6_GRAD_CASES = ((64, 16), (64, 128), (80, 16), (80, 128))
 # gradient
 WKV6_GRAD_REL = 1e-4
 WKV6_BWD_SHORT = (2, 48, 4, 80)
+# and on the parallel route from a nonzero state with a state gradient, T
+# a whole number of chunks of neither route
+WKV6_BWD_STATE = (2, 100, 8, 64)
+# the backward's route at rwkv6's training shape (kernel.backward_route)
+WKV6_BWD_TRAIN_ROUTE = "parallel"
 TINY_FRONTIER = os.path.join(ROOT, "benchmarks", "results", "after",
                              "dse_frontier_tiny.json")
 # phase_checkpoint (a): examples/train_lm_torch.py at its defaults (~88 M
@@ -864,26 +873,34 @@ def _wkv6_grads_held(label: str, got, args) -> dict:
 
 
 def _wkv6_backward_check(card: str) -> dict:
-    """The backward kernel (wkv6_backward on CUDA tensors) held to float64
-    autograd through wkv6_ref (_wkv6_grads_held) on the route T gives it:
-    at the training shape WKV6_TRAIN from zeros with no state gradient, as
-    training calls it, in bf16 and float32 at each of WKV6_DECAYS
-    (chunked: the chunk entry states recomputed first); and at
-    WKV6_BWD_SHORT (step: one chunk; D 80) from a nonzero state with a
-    state gradient.  Each case's second call must equal its first bit for
-    bit.  At the training shape with the model's decays ("mid") the kernel
-    is timed beside the plain backward (autograd through wkv6_ref), and
-    profiled by kernel.  Returns the kernels line's entry (bf16 training,
-    path "train")."""
+    """The backward kernels (wkv6_backward on CUDA tensors) held to
+    float64 autograd through wkv6_ref (_wkv6_grads_held) on the route the
+    shape gives them (kernel.backward_route): at the training shape
+    WKV6_TRAIN from zeros with no state gradient, as training calls it,
+    in bf16 and float32 at each of WKV6_DECAYS (parallel); at
+    WKV6_BWD_STATE (parallel) and WKV6_BWD_SHORT (the first kernel's step
+    route: D 80) from a nonzero state with a state gradient.  Each case's
+    second call must equal its first bit for bit.  At the training shape
+    with the model's decays ("mid") the kernels are timed beside the
+    kernel the parallel route replaced (the first kernel's chunked route,
+    its C entry called directly: not a launch of the path), held the same
+    way on the same inputs, and beside the plain backward (autograd
+    through wkv6_ref), and the call's device time is split by pass.
+    Returns the kernels line's entry (bf16 training, path "train")."""
     from repro_torch.bench import sleep_cycles_per_ms, time_ms
-    from repro_torch.kernels.wkv6.kernel import CHUNK_T
+    from repro_torch.kernels.wkv6.kernel import (CHUNK_T, backward_route,
+                                                 wkv6_backward_cuda)
     from repro_torch.kernels.wkv6.ops import wkv6_backward
 
     cyc = sleep_cycles_per_ms()
     entry = None
     _zero_counts(wkv6_backward)
     cases = [(*WKV6_TRAIN, H, D, False, decays) for decays in WKV6_DECAYS]
-    cases.append((*WKV6_BWD_SHORT, True, "mid"))
+    cases += [(*WKV6_BWD_STATE, True, "mid"), (*WKV6_BWD_SHORT, True, "mid")]
+    if backward_route(*WKV6_TRAIN, H, D) != WKV6_BWD_TRAIN_ROUTE:
+        raise AssertionError(f"the training shape's backward route is "
+                             f"{backward_route(*WKV6_TRAIN, H, D)}, not "
+                             f"{WKV6_BWD_TRAIN_ROUTE}")
     for dtype in (torch.bfloat16, torch.float32):
         for nb, T, nh, d, with_state, decays in cases:
             gen = torch.Generator(device="cuda").manual_seed(7 * T + d)
@@ -908,7 +925,7 @@ def _wkv6_backward_check(card: str) -> dict:
             timed = train and decays == "mid"
             nbytes = 9 * nb * T * nh * d * dtype.itemsize
             bufs = [make() for _ in range(_copies(nbytes) if timed else 1)]
-            want_kind = "chunked" if T > CHUNK_T else "step"
+            want_kind = backward_route(nb, T, nh, d)
             label = f"wkv6 backward {str(dtype)[6:]} B={nb} T={T} H={nh} " \
                 f"D={d} {decays}"
             got = wkv6_backward(*bufs[0])
@@ -922,15 +939,30 @@ def _wkv6_backward_check(card: str) -> dict:
             if timed:
                 ms, host_ms = time_ms([lambda b=b: wkv6_backward(*b)
                                        for b in bufs], 20, cyc)
+                split = _wkv6_backward_split(wkv6_backward, bufs)
+                ran_on(wkv6_backward, kind, f"{label} timed")
+                before = "chunked" if T > CHUNK_T else "step"
+
+                def first(*b):
+                    return wkv6_backward_cuda(*b, kind=before)[:6]
+
+                b_held = _wkv6_grads_held(f"{label} on the first kernel's "
+                                          f"{before} route",
+                                          first(*bufs[0]), bufs[0])
+                prev_ms, _ = time_ms([lambda b=b: first(*b) for b in bufs],
+                                     20, cyc)
+                b_split = _wkv6_backward_split(first, bufs)
                 plain_ms, _ = time_ms([lambda b=b: _wkv6_autograd(b, None)
                                        for b in bufs], 2, cyc)
-                timing = f"; kernel {ms:.5f} ms (host {host_ms:.5f} ms " \
-                    f"per call), plain {plain_ms:.5f} ms; by kernel " + \
-                    _device_ms_by_kernel(wkv6_backward, bufs)
-                ran_on(wkv6_backward, kind, f"{label} timed")
                 bound_ms, bound_by = wkv6_backward_bound(
                     nb, T, nh, d, dtype, with_state, with_state)
-                timing += f", bound {bound_ms:.5f} ms ({bound_by}), " \
+                timing = f"; kernels {ms:.5f} ms (host {host_ms:.5f} ms " \
+                    f"per call; by pass {split}), the first kernel's " \
+                    f"{before} route on the same inputs (before) " \
+                    f"{prev_ms:.5f} ms ({prev_ms / ms:.2f}x; by pass " \
+                    f"{b_split}; worst |err| / max|g| " \
+                    f"{b_held['err']:.3e}), plain {plain_ms:.5f} ms, " \
+                    f"bound {bound_ms:.5f} ms ({bound_by}), " \
                     f"{100 * bound_ms / ms:.1f}% of bound"
                 if dtype == torch.bfloat16:
                     entry = dict(
@@ -942,7 +974,7 @@ def _wkv6_backward_check(card: str) -> dict:
                         "backward, zero state, no state gradient",
                         max_abs_err=held["abs"], ms=ms, plain_ms=plain_ms,
                         bound_ms=bound_ms, bound_by=bound_by,
-                        library_ms=None)
+                        library_ms=None, prev_ms=prev_ms)
             print(f"[wkv6] {label} (decays {lo}-{hi}"
                   f"{', state0 and g_state given' if with_state else ''}) "
                   f"on the {kind} route, against float64 autograd through "
@@ -955,9 +987,30 @@ def _wkv6_backward_check(card: str) -> dict:
     return entry
 
 
-def _device_ms_by_kernel(fn, bufs, calls: int = 10) -> str:
-    """Device ms per call of each kernel that ``calls`` calls of ``fn``
-    over ``bufs`` launch, from torch.profiler."""
+def _wkv6_backward_split(fn, bufs, calls: int = 10) -> str:
+    """Device ms per call of ``fn`` over ``bufs`` (a wkv6 backward) by
+    pass: the state's chunk pass (the forward's local and scan kernels),
+    the gradient's chunk pass (its local and scan kernels), the chunk
+    kernel (the first kernel's row and column kernel on its routes), and
+    du's sum; any other kernel under its own name; from torch.profiler."""
+    parts = {"S chunk pass": ("wkv6_local_kernel", "wkv6_scan_kernel"),
+             "G chunk pass": ("wkv6_backward_glocal_kernel",
+                              "wkv6_backward_gscan_kernel"),
+             "chunk kernel": ("wkv6_backward_chunk_kernel",
+                              "wkv6_backward_kernel",
+                              "wkv6_backward_any_kernel"),
+             "du": ("wkv6_backward_du_kernel",)}
+    ms = _device_ms_by_name(fn, bufs, calls)
+    named = {n for names in parts.values() for n in names}
+    parts.update({n: (n,) for n in ms if n not in named})
+    return ", ".join(f"{part} {sum(ms.get(n, 0.0) for n in names):.5f} ms"
+                     for part, names in parts.items()
+                     if any(n in ms for n in names))
+
+
+def _device_ms_by_name(fn, bufs, calls: int = 10) -> dict:
+    """Device ms per call of each kernel, by name, that ``calls`` calls of
+    ``fn`` over ``bufs`` launch, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -965,14 +1018,21 @@ def _device_ms_by_kernel(fn, bufs, calls: int = 10) -> str:
         for i in range(calls):
             fn(*bufs[i % len(bufs)])
         torch.cuda.synchronize()
-    out = []
+    out = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0)
         name = re.search(r"(\w+)(?:<[^()]*>)?\(", e.key)
         if us > 0:
-            out.append(f"{name.group(1) if name else e.key[:40]} "
-                       f"{us / 1e3 / calls:.5f} ms")
-    return ", ".join(out)
+            key = name.group(1) if name else e.key[:40]
+            out[key] = out.get(key, 0.0) + us / 1e3 / calls
+    return out
+
+
+def _device_ms_by_kernel(fn, bufs, calls: int = 10) -> str:
+    """Device ms per call of each kernel that ``calls`` calls of ``fn``
+    over ``bufs`` launch, from torch.profiler."""
+    return ", ".join(f"{name} {ms:.5f} ms" for name, ms in
+                     _device_ms_by_name(fn, bufs, calls).items())
 
 
 def _copies(nbytes: int) -> int:
@@ -2931,6 +2991,17 @@ def _plain_ran(*args, **kwargs):
     raise AssertionError("a plain wkv6 version ran on the training path")
 
 
+def _wkv6_train_launches(want: int) -> bool:
+    """True unless wkv6 launched ``want`` times, all on chunked, and its
+    backward ``want`` times, all on WKV6_BWD_TRAIN_ROUTE, since their
+    counts were zeroed (rwkv6's training shapes)."""
+    from repro_torch.kernels.wkv6.ops import wkv6, wkv6_backward
+    return (wkv6.launches, wkv6.launches_by_route["chunked"],
+            wkv6_backward.launches,
+            wkv6_backward.launches_by_route[WKV6_BWD_TRAIN_ROUTE]) != \
+        (want,) * 4
+
+
 def phase_train(card: str) -> dict:
     """Trains each of TRAIN_RUNS at full size on the card through
     repro_torch.train (random bf16 weights from seed 0, one repeated
@@ -2996,12 +3067,12 @@ def phase_train(card: str) -> dict:
                                  f"{losses[-1]} did not fall")
         if cfg.family == "ssm":
             want = cfg.n_layers * n_steps
-            if any(op.launches_by_route["chunked"] != want or
-                   op.launches != want for op in (wkv6, wkv6_backward)) \
-                    or decode_attn.launches:
+            if _wkv6_train_launches(want) or decode_attn.launches:
                 raise AssertionError(f"{arch}: launches {counts}, want "
-                                     f"wkv6 and wkv6_backward {want} each "
-                                     f"on chunked, no decode_attn")
+                                     f"wkv6 {want} on chunked and "
+                                     f"wkv6_backward {want} on "
+                                     f"{WKV6_BWD_TRAIN_ROUTE}, no "
+                                     f"decode_attn")
             u_grad = state.params.layers[0].u.grad
             if u_grad is None or not bool(u_grad.abs().max() > 0):
                 raise AssertionError(f"{arch}: no gradient through wkv6")
@@ -3162,11 +3233,11 @@ def phase_train_grads(card: str) -> None:
     _zero_counts(wkv6, wkv6_backward)
     with mock.patch.object(wkv6_ops, "wkv6_backward_cuda", recording):
         k_loss, k_grads, k_s = backward(model, params, batch)
-    if any(op.launches_by_route["chunked"] != n_layers or
-           op.launches != n_layers for op in (wkv6, wkv6_backward)):
+    if _wkv6_train_launches(n_layers):
         raise AssertionError(f"float32 {arch}: launches "
                              f"{_counts(wkv6)} {_counts(wkv6_backward)}, "
-                             f"want {n_layers} each on chunked")
+                             f"want {n_layers} each, on chunked and "
+                             f"{WKV6_BWD_TRAIN_ROUTE}")
     with mock.patch.object(rwkv6_mod, "wkv6", wkv6_ref):
         p_loss, p_grads, p_s = backward(model, params, batch)
     rel = _loss_held(f"float32 {arch}, kernel - plain wkv6", k_loss, p_loss)
@@ -3400,8 +3471,9 @@ def _checkpoint_train_lm(tmp: str, card: str) -> None:
 def _checkpoint_rwkv6(tmp: str, card: str) -> dict:
     """(b) of phase_checkpoint: rwkv6-1.6b's training state through an
     async save under a step and a restore into a fresh state.  Returns
-    the launches of its four steps (wkv6 and its backward kernel on
-    chunked once a layer and step each, no decode_attn)."""
+    the launches of its four steps (wkv6 on chunked and its backward
+    kernels on WKV6_BWD_TRAIN_ROUTE once a layer and step each, no
+    decode_attn)."""
     import dataclasses
 
     from repro_torch.checkpoint.checkpointer import Checkpointer
@@ -3485,14 +3557,13 @@ def _checkpoint_rwkv6(tmp: str, card: str) -> dict:
     counts = {**_counts(decode_attn), **_counts(wkv6),
               **_counts(wkv6_backward)}
     want = 4 * cfg.n_layers
-    if any(op.launches_by_route["chunked"] != want or op.launches != want
-           for op in (wkv6, wkv6_backward)) or decode_attn.launches:
+    if _wkv6_train_launches(want) or decode_attn.launches:
         raise AssertionError(f"launches {counts}, want wkv6 and "
-                             f"wkv6_backward {want} each on chunked, no "
-                             f"decode_attn")
+                             f"wkv6_backward {want} each, on chunked and "
+                             f"{WKV6_BWD_TRAIN_ROUTE}, no decode_attn")
     print(f"[checkpoint] rwkv6-1.6b at full width, {cfg.n_layers} of 24 "
           f"layers ({n_params / 1e9:.3f} B parameters), B 2 x T 256, wkv6 "
-          f"and its backward kernel on chunked once a layer and step: save "
+          f"and its backward kernels once a layer and step: save "
           f"{t_save:.2f} s "
           f"(snapshot to host), the third step under the write "
           f"{1e3 * t_step:.1f} ms (the second alone {1e3 * times[1]:.1f} "

@@ -19,13 +19,21 @@ kernels instantiated for it, every other D on the source's
 ``wkv6_any_kernel`` (one thread a column of the state, D a runtime
 value), inside the same C entry points.
 
-The gradient has its own kernel (``csrc/wkv6_backward.cu``,
+The gradient has its own kernels (``csrc/wkv6_backward.cu``,
 ``wkv6_backward_cuda``), for any D >= 1 and T >= 1, whichever route the
-forward took.  Where T spans more than one chunk of ``CHUNK_T`` steps (its
-``chunked`` route; else ``step``) the chunked route's local and scan
-kernels first recompute the state at each chunk's entry (the source's
-``repro_wkv6_chunk_states``); the kernel then walks the chunks from the
-last, one chunk's states at a time.
+forward took; ``backward_route`` picks one of three routes from the shape
+before the launch:
+
+* ``parallel`` (D in ``BWD_HEAD_DIMS``, any T): chunks of
+  ``BWD_CHUNK_T`` steps all at once.  The forward's local and scan
+  kernels give the state at each chunk's entry (the source's
+  ``repro_wkv6_chunk_states`` at this chunk length), the gradient's own
+  local and scan kernels the state gradient at each chunk's exit; then one
+  block a (batch, head, chunk) recomputes the chunk's states on chip and
+  walks them back.
+* ``chunked`` / ``step`` (every other D; T over ``CHUNK_T`` or not): the
+  first backward kernel, which walks the chunks of ``CHUNK_T`` steps one
+  after another from the last, a thread a row or column of the state.
 """
 from __future__ import annotations
 
@@ -42,6 +50,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)   # D the fast kernels are instantiated for
 ROUTES = ("step", "chunked")
 CHUNK_T = 64          # steps a chunk of the chunked route covers
+BACKWARD_ROUTES = ("step", "chunked", "parallel")
+BWD_HEAD_DIMS = (16, 32, 64)   # D the parallel backward is built for
+BWD_CHUNK_T = 16      # steps a chunk of the parallel backward covers
 
 
 @functools.cache
@@ -62,12 +73,17 @@ def _entries():
 
 
 @functools.cache
-def _backward_entry():
-    fn = _build.load("wkv6_backward").repro_wkv6_backward
-    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def _backward_entries():
+    lib = _build.load("wkv6_backward")
+    out = {}
+    for kind, name in (("serial", "repro_wkv6_backward"),
+                       ("parallel", "repro_wkv6_backward_parallel")):
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        out[kind] = fn
+    return out
 
 
 def route(B: int, T: int, H: int, D: int) -> str:
@@ -82,13 +98,26 @@ def route(B: int, T: int, H: int, D: int) -> str:
     return "chunked" if T >= CHUNK_T else "step"
 
 
+def backward_route(B: int, T: int, H: int, D: int) -> str:
+    """The backward kernel's route: ``parallel`` for D in
+    ``BWD_HEAD_DIMS`` at any T (rwkv6's D 64: the chunks run at once),
+    else the first kernel, ``chunked`` where T spans more than one chunk
+    of ``CHUNK_T`` steps and ``step`` within one.  B and H do not move
+    the rule."""
+    del B, H
+    if D in BWD_HEAD_DIMS:
+        return "parallel"
+    return "chunked" if T > CHUNK_T else "step"
+
+
 def _chunked_scratch(B: int, T: int, H: int, D: int,
-                    device: torch.device):
-    """The chunked route's float32 scratch, from PyTorch's allocator:
-    local outputs (B, T, H, D), chunk end states (B, chunks, H, D, D) and
-    decay products (B, chunks, H, D) in one tensor.  Returns the tensor
-    (kept alive until the launch is queued) and the three pointers."""
-    n_chunks = cdiv(T, CHUNK_T)
+                     device: torch.device, ct: int = CHUNK_T):
+    """The chunked route's float32 scratch, from PyTorch's allocator, for
+    chunks of ``ct`` steps: local outputs (B, T, H, D), chunk end states
+    (B, chunks, H, D, D) and decay products (B, chunks, H, D) in one
+    tensor.  Returns the tensor (kept alive until the launch is queued)
+    and the three pointers."""
+    n_chunks = cdiv(T, ct)
     n_local = B * T * H * D
     n_states = B * n_chunks * H * D * D
     scratch = torch.empty(n_local + n_states + B * n_chunks * H * D,
@@ -154,14 +183,16 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def wkv6_backward_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        w: torch.Tensor, u: torch.Tensor,
                        state0: Optional[torch.Tensor], g_out: torch.Tensor,
-                       g_state: Optional[torch.Tensor] = None):
+                       g_state: Optional[torch.Tensor] = None,
+                       kind: Optional[str] = None):
     """The gradients of ``wkv6_cuda``'s (out, state) given ``g_out``
     (B, T, H, D, in r's dtype) and ``g_state`` (B, H, D, D float32, or
-    None for zeros), on the backward kernel; inputs as ``wkv6_cuda``
-    takes them.  Returns (dr, dk, dv, dw in r's dtype, du (H, D) float32,
-    dstate0 (B, H, D, D) float32, the route): ``chunked`` when T spans
-    more than one chunk, whose entry states the forward's chunked entry
-    recomputes first, else ``step``."""
+    None for zeros), on the backward kernels; inputs as ``wkv6_cuda``
+    takes them.  Runs on ``backward_route``'s route, or on ``kind`` where
+    given: the first kernel's route (``chunked`` or ``step``, as T gives
+    it) runs at every D, which is how ``chip_smoke.py`` times the kernel
+    the parallel route replaced.  Returns (dr, dk, dv, dw in r's dtype, du
+    (H, D) float32, dstate0 (B, H, D, D) float32, the route)."""
     B, T, H, D = r.shape
     if r.dtype not in _DTYPES or any(t.dtype != r.dtype
                                      for t in (k, v, w, g_out)):
@@ -185,46 +216,65 @@ def wkv6_backward_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"{tuple(g_out.shape)}, u {tuple(u.shape)}, state0 "
             f"{None if state0 is None else tuple(state0.shape)}, g_state "
             f"{None if g_state is None else tuple(g_state.shape)}")
+    serial = "chunked" if T > CHUNK_T else "step"
+    allowed = {backward_route(B, T, H, D), serial}
+    if kind is None:
+        kind = backward_route(B, T, H, D)
+    elif kind not in allowed:
+        raise ValueError(f"wkv6 backward at {tuple(r.shape)} runs on "
+                         f"{sorted(allowed)}, not {kind!r}")
     named = [("r", r), ("k", k), ("v", v), ("w", w), ("u", u),
              ("g_out", g_out)]
     named += [(n, t) for n, t in (("state0", state0), ("g_state", g_state))
               if t is not None]
     check_on_card(named)
-    kind = "chunked" if T > CHUNK_T else "step"
+    # the parallel route and the forward's kernels built for HEAD_DIMS
+    # read 16-byte vectors
+    if (kind == "parallel" or (kind == "chunked" and D in HEAD_DIMS)) and \
+            any(t.data_ptr() % 16 for _, t in named):
+        raise ValueError(f"{', '.join(n for n, _ in named)} must be "
+                         f"16-byte aligned")
+    ct = BWD_CHUNK_T if kind == "parallel" else CHUNK_T
+    n_chunks = cdiv(T, ct)
     f32 = dict(dtype=torch.float32, device=r.device)
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du = torch.empty((H, D), **f32)
     dstate0 = torch.empty((B, H, D, D), **f32)
-    du_part = torch.empty((B, H, D), **f32)
-    hist = torch.empty((B, H, min(T, CHUNK_T), D, D), **f32)
-    g_t = torch.empty((B, H, D, D), **f32)
+    if kind == "parallel":   # du_part, G at the chunks' exits, their decays
+        scratch = torch.empty(B * n_chunks * H * D * (2 + D), **f32)
+        n_part = B * n_chunks * H * D
+        ptrs = (scratch.data_ptr(), scratch.data_ptr() + 4 * n_part,
+                scratch.data_ptr() + 4 * n_part * (1 + D))
+    else:                    # du_part, one chunk's states, G
+        scratch = torch.empty(B * H * D * (1 + (min(T, CHUNK_T) + 1) * D),
+                              **f32)
+        n_hist = B * H * min(T, CHUNK_T) * D * D
+        ptrs = (scratch.data_ptr(), scratch.data_ptr() + 4 * B * H * D,
+                scratch.data_ptr() + 4 * (B * H * D + n_hist))
     s0 = None if state0 is None else state0.data_ptr()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         entry = None
-        if kind == "chunked":
-            if D in HEAD_DIMS and any(t.data_ptr() % 16 for t in
-                                      (r, k, v, w, u)):
-                raise ValueError("r, k, v, w and u must be 16-byte aligned")
+        if n_chunks > 1:
             # the chunk entry states, by the chunked route's local and
             # scan passes; their outputs and final state land in dv and
-            # dstate0, which the backward kernel then overwrites
-            scratch, ptrs = _chunked_scratch(B, T, H, D, r.device)
+            # dstate0, which the backward kernels then overwrite
+            states, sp = _chunked_scratch(B, T, H, D, r.device, ct)
             err = _entries()["states"](
                 r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                u.data_ptr(), s0, dv.data_ptr(), dstate0.data_ptr(), *ptrs,
-                B, T, H, D, CHUNK_T, _DTYPES[r.dtype], stream)
+                u.data_ptr(), s0, dv.data_ptr(), dstate0.data_ptr(), *sp,
+                B, T, H, D, ct, _DTYPES[r.dtype], stream)
             if err != 0:
                 raise RuntimeError(f"wkv6 backward: the chunk states' "
                                    f"launch failed: CUDA error {err}")
-            entry = ptrs[1]
-        err = _backward_entry()(
+            entry = sp[1]
+        err = _backward_entries()[
+            "parallel" if kind == "parallel" else "serial"](
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), s0, g_out.data_ptr(),
             None if g_state is None else g_state.data_ptr(), entry,
             dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
-            du.data_ptr(), dstate0.data_ptr(), du_part.data_ptr(),
-            hist.data_ptr(), g_t.data_ptr(), B, T, H, D, CHUNK_T,
+            du.data_ptr(), dstate0.data_ptr(), *ptrs, B, T, H, D, ct,
             _DTYPES[r.dtype], stream)
     if err != 0:
         raise RuntimeError(f"wkv6 backward kernel launch failed ({kind} "

@@ -7,11 +7,14 @@ launches of each route (``kernel.route``: ``step`` or ``chunked``; the
 chunked route's three kernels are one C call and count as one launch).
 
 On the card the kernel runs inside an ``autograd.Function``: its forward
-is the kernel, its backward ``wkv6_backward``, the backward kernel
-(``csrc/wkv6_backward.cu``), which counts its own launches the same way
-(its chunk-state recompute and its passes are one launch).  The
-reference trains through its ``lax.scan`` and has no backward kernel.
-On the CPU ``wkv6_ref`` is differentiable as it stands.
+is the kernel, its backward ``wkv6_backward``, the backward kernels
+(``csrc/wkv6_backward.cu``), which count their own launches the same way,
+by ``kernel.backward_route`` (``parallel`` for rwkv6's D 64: the chunks'
+entry states and exit gradients by two chunk scans, then every chunk at
+once; the first kernel's ``step`` / ``chunked`` for other D); a call's
+kernels are one launch.  The reference trains through its ``lax.scan``
+and has no backward kernel.  On the CPU ``wkv6_ref`` is differentiable
+as it stands.
 """
 from __future__ import annotations
 
@@ -20,7 +23,8 @@ from typing import Optional
 import torch
 
 from ..common import note_cost, shape_only, to_local
-from .kernel import CHUNK_T, ROUTES, wkv6_backward_cuda, wkv6_cuda
+from .kernel import (BACKWARD_ROUTES, CHUNK_T, ROUTES, wkv6_backward_cuda,
+                     wkv6_cuda)
 from .ref import wkv6_backward_ref, wkv6_ref
 
 
@@ -55,9 +59,9 @@ def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   g_state: Optional[torch.Tensor] = None):
     """The gradients (dr, dk, dv, dw, du, dstate0) of ``wkv6``'s (out,
     state) given ``g_out`` and ``g_state`` (None: zeros): the backward
-    kernel on CUDA tensors, the plain hand-derived version
-    (``wkv6_backward_ref``) on CPU tensors.  dr, dk, dv and dw in r's
-    dtype, du and dstate0 float32."""
+    kernels on CUDA tensors, on ``kernel.backward_route``'s route, the
+    plain hand-derived version (``wkv6_backward_ref``) on CPU tensors.
+    dr, dk, dv and dw in r's dtype, du and dstate0 float32."""
     if r.device.type == "cpu":
         return wkv6_backward_ref(r, k, v, w, u, state0, g_out, g_state)
     if r.device.type != "cuda":
@@ -101,8 +105,8 @@ def wkv6_cost(B: int, T: int, H: int, D: int, itemsize: int,
 
 def wkv6_backward_cost(B: int, T: int, H: int, D: int, itemsize: int,
                        with_state0: bool, with_g_state: bool):
-    """(flops, bytes) the gradient needs, not the backward kernel's own
-    work (which repeats some of it).  Flops per (batch, head, step),
+    """(flops, bytes) the gradient needs, not the backward kernels' own
+    work (which repeats some of it: ``csrc/wkv6_backward.cu`` counts it).  Flops per (batch, head, step),
     float32: 14 D^2 -- 3 D^2 to recompute S_{t-1} (diag(w) S + k^T v), 3
     D^2 for G's update (diag(w) G + r^T go), 2 D^2 each for dr (S go), dk
     (G v), dv (k G) and dw (sum_e G * S); the u terms are O(D) -- plus,
@@ -176,4 +180,4 @@ def _shape_only(r, k, v, w, u, state0):
 wkv6.launches = 0
 wkv6.launches_by_route = dict.fromkeys(ROUTES, 0)
 wkv6_backward.launches = 0
-wkv6_backward.launches_by_route = dict.fromkeys(ROUTES, 0)
+wkv6_backward.launches_by_route = dict.fromkeys(BACKWARD_ROUTES, 0)

@@ -140,8 +140,8 @@ def wkv6_backward_ref(r, k, v, w, u, state0, g_out, g_state=None):
 
 def wkv6_backward_chunked_ref(r, k, v, w, u, state0, g_out, g_state=None,
                               ct: int = 64):
-    """``wkv6_backward_ref`` as the backward kernel computes it: the state
-    at each chunk's entry from the forward's chunk recurrence (chunks of
+    """``wkv6_backward_ref`` as the backward kernel's ``step`` and
+    ``chunked`` routes compute it: the state at each chunk's entry from the forward's chunk recurrence (chunks of
     ``ct`` steps, as ``wkv6_chunked_ref``; one state a chunk is kept),
     then the chunks from the last to the first, each recomputing its own
     states from its entry state and passing the gradient of its entry
@@ -150,12 +150,7 @@ def wkv6_backward_chunked_ref(r, k, v, w, u, state0, g_out, g_state=None,
     _, S0, G, (rf, kf, vf, wf, gof), uf = _widened(r, k, v, w, u, state0,
                                                    g_out, g_state)
     starts = list(range(0, T, ct))
-    entry = [S0]
-    for c0 in starts[:-1]:
-        sl = slice(c0, c0 + ct)
-        _, L = wkv6_ref(rf[:, sl], kf[:, sl], vf[:, sl], wf[:, sl], uf)
-        W = torch.prod(wf[:, sl], 1)                          # (B, H, D)
-        entry.append(W[..., None] * entry[-1] + L)
+    entry = _state_entries(S0, rf, kf, vf, wf, uf, ct)
     parts, du = [], torch.zeros_like(uf)
     for c0, Sc in reversed(list(zip(starts, entry))):
         sl = slice(c0, min(T, c0 + ct))
@@ -166,3 +161,64 @@ def wkv6_backward_chunked_ref(r, k, v, w, u, state0, g_out, g_state=None,
         du = du + du_c
     dr, dk, dv, dw = (torch.cat(g[::-1], 1) for g in zip(*parts))
     return _narrowed(r, u, state0, dr, dk, dv, dw, du, G)
+
+
+def _state_entries(S0, rf, kf, vf, wf, uf, ct):
+    """The state at each chunk's entry (chunks of ``ct`` steps), by the
+    forward's chunk scan: each chunk's end state from zeros L_c, then
+    S_{c+1} = diag(W_c) S_c + L_c, W_c the product of its decays."""
+    entry = [S0]
+    for c0 in range(0, rf.shape[1], ct)[:-1]:
+        sl = slice(c0, c0 + ct)
+        _, L = wkv6_ref(rf[:, sl], kf[:, sl], vf[:, sl], wf[:, sl], uf)
+        entry.append(torch.prod(wf[:, sl], 1)[..., None] * entry[-1] + L)
+    return entry
+
+
+def _gradient_exits(G, rf, wf, gof, ct):
+    """The state gradient at each chunk's exit (the gradient of the state
+    after its last step; G for the last chunk), by the gradient's own
+    chunk scan.  G_{t-1} = diag(w_t) G_t + r_t^T go_t has the forward's
+    form with time reversed, so over a chunk G at its entry is diag(W_c)
+    G at its exit + LG_c, with LG_c = sum_t diag(p_t) r_t^T go_t the
+    chunk's part from a zero exit, p_t the product of the chunk's decays
+    before step t (products only, no division).  The scan runs from the
+    last chunk: exit(c - 1) = diag(W_c) exit(c) + LG_c."""
+    starts = list(range(0, rf.shape[1], ct))
+    exits = [G]
+    for c0 in reversed(starts[1:]):
+        sl = slice(c0, c0 + ct)
+        wc = wf[:, sl]
+        p = torch.cumprod(torch.cat([torch.ones_like(wc[:, :1]),
+                                     wc[:, :-1]], 1), 1)
+        local = torch.einsum("bthd,bthe->bhde", rf[:, sl] * p, gof[:, sl])
+        exits.append(torch.prod(wc, 1)[..., None] * exits[-1] + local)
+    return exits[::-1]
+
+
+def wkv6_backward_parallel_ref(r, k, v, w, u, state0, g_out, g_state=None,
+                               ct: int = 16):
+    """``wkv6_backward_ref`` as the backward kernel's ``parallel`` route
+    computes it, in chunks of ``ct`` steps that need no other chunk once
+    two scans have run: the state at each chunk's entry by the forward's
+    chunk scan (``_state_entries``), the state gradient at each chunk's
+    exit by the gradient's reverse chunk scan (``_gradient_exits``), then
+    every chunk on its own from its entry state and exit gradient; du sums
+    the chunks' parts in order, and chunk 0's gradient at its entry is
+    dstate0."""
+    _, S0, G, (rf, kf, vf, wf, gof), uf = _widened(r, k, v, w, u, state0,
+                                                   g_out, g_state)
+    entries = _state_entries(S0, rf, kf, vf, wf, uf, ct)
+    exits = _gradient_exits(G, rf, wf, gof, ct)
+    parts, du = [], torch.zeros_like(uf)
+    for c0, Sc, Gc in zip(range(0, r.shape[1], ct), entries, exits):
+        sl = slice(c0, c0 + ct)
+        *grads, du_c, G_in = _reverse_steps(Sc, Gc, rf[:, sl], kf[:, sl],
+                                            vf[:, sl], wf[:, sl],
+                                            gof[:, sl], uf)
+        parts.append(grads)
+        du = du + du_c
+        if c0 == 0:
+            dS0 = G_in
+    dr, dk, dv, dw = (torch.cat(g, 1) for g in zip(*parts))
+    return _narrowed(r, u, state0, dr, dk, dv, dw, du, dS0)

@@ -22,7 +22,8 @@ from repro_torch.kernels.qgemm_int8.kernel import route as qgemm_route
 from repro_torch.kernels.qgemm_int8.ops import qgemm_int8
 from repro_torch.kernels.qgemm_int8.ref import (int_matmul_ref, qgemm_ref,
                                                 quantize_rowwise)
-from repro_torch.kernels.wkv6.kernel import CHUNK_T
+from repro_torch.kernels.wkv6.kernel import (BWD_CHUNK_T, CHUNK_T,
+                                             backward_route)
 from repro_torch.kernels.wkv6.kernel import route as wkv6_route
 from repro_torch.kernels.wkv6.ops import wkv6, wkv6_backward
 from repro_torch.kernels.wkv6.ref import wkv6_ref
@@ -432,9 +433,11 @@ def _wkv6_grads_held(got, inputs):
     (1, 200, 2, 256, (0.9, 0.999), False)])
 def test_wkv6_backward_kernel_matches_plain(B, T, H, D, decays, with_state,
                                             dtype):
-    """The Function's backward on the card (the backward kernel, on the
-    route T gives it), both forward routes, D on the register kernel (up
-    to 64) and past it, against float64 autograd through wkv6_ref."""
+    """The Function's backward on the card (the backward kernels, on the
+    route the shape gives them: ``parallel`` for D 16 / 32 / 64, the first
+    kernel's ``step`` / ``chunked`` by T for other D, on registers up to
+    64 and past it), both forward routes, against float64 autograd through
+    wkv6_ref."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     r, k, v, w, u, s0 = _wkv6_inputs(B, T, H, D, dtype, seed=T + D,
@@ -453,10 +456,57 @@ def test_wkv6_backward_kernel_matches_plain(B, T, H, D, decays, with_state,
                                    [a for a in ins if a is not None],
                                    [g for _, g in outs]))
     torch.cuda.synchronize()
-    kind = "chunked" if T > CHUNK_T else "step"
+    kind = backward_route(B, T, H, D)
     assert wkv6_backward.launches == before[0] + 1
     assert wkv6_backward.launches_by_route[kind] == before[1][kind] + 1
     _wkv6_grads_held(got + ([None] if s0 is None else []),
+                     (r, k, v, w, u, s0, go, gs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,T,with_state,g_state,decays", [
+    (16, 1, True, True, (0.9, 0.999)),              # one step
+    (32, BWD_CHUNK_T - 3, False, True, (1e-4, 0.05)),  # T < one chunk
+    (64, BWD_CHUNK_T, True, False, (0.999, 0.99999)),  # one whole chunk
+    (64, 5 * BWD_CHUNK_T + 3, False, False, (0.9, 0.999)),  # ragged
+    (16, 4 * BWD_CHUNK_T, True, True, (0.999, 0.99999)),
+    (32, 7 * BWD_CHUNK_T + 1, True, False, (0.9, 0.999)),
+    (64, 256, False, True, (1e-4, 0.05)),
+    (64, 256, True, True, (0.999, 0.99999)),
+    (80, 130, True, True, (0.9, 0.999)),            # stays on chunked
+    (80, 10, False, False, (0.999, 0.99999))])      # stays on step
+def test_wkv6_backward_parallel_matches_plain(D, T, with_state, g_state,
+                                              decays, dtype):
+    """``wkv6_backward`` on the route ``backward_route`` gives (parallel
+    for D 16 / 32 / 64 at any T; the first kernel's for D 80), with and
+    without state0 and g_state, each decay range: every gradient within
+    the larger of 1e-4 of its largest |g| and the plain backward's own
+    error of float64 autograd through wkv6_ref, two calls bit-equal, the
+    launch counted on its route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    B, H = 2, 3
+    r, k, v, w, u, s0 = _wkv6_inputs(B, T, H, D, dtype, seed=3 * T + D,
+                                     decays=decays)
+    s0 = s0 if with_state else None
+    gen = torch.Generator(device="cuda").manual_seed(T + D)
+    go = torch.randn((B, T, H, D), generator=gen, device="cuda").to(dtype)
+    gs = torch.randn((B, H, D, D), generator=gen, device="cuda") \
+        if g_state else None
+    kind = backward_route(B, T, H, D)
+    assert kind == ("parallel" if D in (16, 32, 64) else
+                    "chunked" if T > CHUNK_T else "step")
+    before = wkv6_backward.launches, dict(wkv6_backward.launches_by_route)
+    got = wkv6_backward(r, k, v, w, u, s0, go, gs)
+    again = wkv6_backward(r, k, v, w, u, s0, go, gs)
+    torch.cuda.synchronize()
+    assert wkv6_backward.launches == before[0] + 2
+    assert {n: c - before[1][n] for n, c in
+            wkv6_backward.launches_by_route.items()} == {
+                n: 2 * (n == kind) for n in before[1]}
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _wkv6_grads_held(list(got[:5]) + [got[5] if with_state else None],
                      (r, k, v, w, u, s0, go, gs))
 
 

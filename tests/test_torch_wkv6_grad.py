@@ -1,12 +1,17 @@
 """The WKV6 recurrence's gradient in the port: the plain hand-derived
-backward (``wkv6_backward_ref``) and its chunked form
-(``wkv6_backward_chunked_ref``, the backward kernel's algorithm) against
-autograd through ``wkv6_ref`` in float64 (1e-10), and against ``jax.vjp``
+backward (``wkv6_backward_ref``), its chunked form
+(``wkv6_backward_chunked_ref``, the first backward kernel's algorithm)
+and its parallel form (``wkv6_backward_parallel_ref``, the parallel
+route's: chunk scans of the state and of its gradient, then every chunk
+on its own) against autograd through ``wkv6_ref`` in float64 (1e-10),
+and against ``jax.vjp``
 of the reference's ``wkv6_ref`` and of the model's ``_wkv6_scan`` in
 float32 (1e-4 of each gradient's largest |g|, the bar of training's
 card-against-CPU check); the autograd Function's backward returning None
-where no gradient is wanted; the CPU route of ``wkv6_backward``; and the
-backward kernel launcher's input checks, which need no card.  The kernel
+where no gradient is wanted; the CPU route of ``wkv6_backward``; the
+gradient's chunk scan against the plain walk at every chunk boundary;
+the backward's route rule; and the backward kernel launcher's input
+checks, which need no card.  The kernel
 itself is held against the plain version on a card by
 tests/test_torch_gpu.py, its count in the dry run by
 tests/test_torch_roofline.py."""
@@ -20,9 +25,13 @@ import torch
 
 from repro.kernels.wkv6.ref import wkv6_ref as jax_ref
 from repro.models.rwkv6 import _wkv6_scan as jax_scan
-from repro_torch.kernels.wkv6.kernel import CHUNK_T, wkv6_backward_cuda
+from repro_torch.kernels.wkv6.kernel import (BWD_CHUNK_T, BWD_HEAD_DIMS,
+                                             CHUNK_T, backward_route,
+                                             wkv6_backward_cuda)
 from repro_torch.kernels.wkv6.ops import _WKV6, wkv6_backward
-from repro_torch.kernels.wkv6.ref import (wkv6_backward_chunked_ref,
+from repro_torch.kernels.wkv6.ref import (_gradient_exits,
+                                          wkv6_backward_chunked_ref,
+                                          wkv6_backward_parallel_ref,
                                           wkv6_backward_ref, wkv6_ref)
 
 DECAYS = {"mid": (0.9, 0.999), "near0": (1e-4, 0.05),
@@ -35,8 +44,13 @@ CASES = [(1, 16, True, False, "mid"), (1, 64, False, True, "near0"),
          (64, 16, True, True, "near0"), (64, 64, False, False, "near1"),
          (64, 80, True, False, "mid"), (130, 16, False, True, "mid"),
          (130, 64, True, True, "near1"), (130, 80, False, False, "near0")]
+# the parallel form at the kernel's chunk and at 24 steps, which divides
+# no T of CASES
 FORMS = {"plain": wkv6_backward_ref,
-         "chunked": lambda *a: wkv6_backward_chunked_ref(*a, ct=16)}
+         "chunked": lambda *a: wkv6_backward_chunked_ref(*a, ct=16),
+         "parallel": lambda *a: wkv6_backward_parallel_ref(*a,
+                                                           ct=BWD_CHUNK_T),
+         "parallel_ct24": lambda *a: wkv6_backward_parallel_ref(*a, ct=24)}
 
 
 def _arrays(T, D, state0, g_state, decays, seed, B=2, H=2):
@@ -107,6 +121,46 @@ def test_chunked_form_at_the_kernels_chunk_equals_the_plain_one():
                   torch.float64)
     _held(wkv6_backward_chunked_ref(*args, ct=CHUNK_T),
           wkv6_backward_ref(*args), 1e-12)
+
+
+@pytest.mark.parametrize("ct", [BWD_CHUNK_T, 24])
+@pytest.mark.parametrize("g_state", [False, True])
+def test_gradient_chunk_scan_equals_the_plain_walk_at_each_boundary(
+        g_state, ct):
+    """The gradient's reverse chunk scan (each chunk's part from a zero
+    exit, then exit(c - 1) = diag(W_c) exit(c) + LG_c from the last
+    chunk) gives at each chunk's exit the G that the plain walk, G_{t-1}
+    = diag(w_t) G_t + r_t^T go_t from the end, has there; over a ragged
+    last chunk, float64."""
+    r, k, v, w, u, s0, go, gs = _torch(
+        _arrays(5 * ct + 3, 16, False, g_state, "mid", seed=ct),
+        torch.float64)
+    B, T, H, D = r.shape
+    G = torch.zeros((B, H, D, D), dtype=torch.float64) if gs is None else gs
+    exits = _gradient_exits(G, r, w, go, ct)
+    walked = {}
+    for t in reversed(range(T)):
+        if (t + 1) % ct == 0 or t + 1 == T:     # the exit of t's chunk
+            walked[t // ct] = G
+        G = w[:, t, :, :, None] * G + r[:, t, :, :, None] * go[:, t, :, None]
+    assert len(exits) == len(walked) == -(-T // ct)
+    for c, want in walked.items():
+        torch.testing.assert_close(exits[c], want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("D", [1, 8, 16, 32, 48, 64, 80, 128, 256])
+@pytest.mark.parametrize("T", [1, BWD_CHUNK_T - 1, BWD_CHUNK_T, CHUNK_T,
+                               CHUNK_T + 1, 256, 777])
+def test_backward_route_by_head_size_and_length(T, D):
+    """The parallel route for D 16, 32 and 64 at every T (rwkv6's D 64:
+    training's B 2 x T 256 runs on it), the first kernel for other D:
+    chunked where T spans more than one chunk of CHUNK_T steps, else
+    step.  B and H do not move it."""
+    want = "parallel" if D in (16, 32, 64) else \
+        "chunked" if T > CHUNK_T else "step"
+    assert BWD_HEAD_DIMS == (16, 32, 64)
+    for B, H in ((1, 1), (2, 32), (8, 3)):
+        assert backward_route(B, T, H, D) == want
 
 
 def _jax_vjp(reference, r, k, v, w, u, s0, go, gs):
@@ -210,6 +264,34 @@ def test_backward_launcher_checks_inputs(change, error):
     change(args)
     with pytest.raises(error):
         wkv6_backward_cuda(*args)
+
+
+@pytest.mark.parametrize("D,T,kind", [
+    (16, 8, "chunked"),     # one chunk: the first kernel's route is step
+    (64, 100, "step"),      # more than one chunk: it is chunked
+    (80, 8, "parallel"),    # not built for D 80
+    (64, 8, "simt")])       # no such route
+def test_backward_launcher_refuses_another_route(D, T, kind):
+    """``kind`` may name the rule's route or the first kernel's route for
+    T (chip_smoke's "before" timing); anything else is refused before the
+    launch."""
+    args = _launcher_args(D=D)
+    for i in (0, 1, 2, 3, 6):
+        args[i] = torch.zeros((1, T, 2, D))
+    with pytest.raises(ValueError, match="runs on"):
+        wkv6_backward_cuda(*args, kind=kind)
+
+
+@pytest.mark.parametrize("D,T,kind", [(64, 8, "step"), (64, 100, "chunked"),
+                                      (64, 100, "parallel")])
+def test_backward_launcher_takes_either_route_then_needs_a_card(D, T, kind):
+    """The routes ``kind`` may name pass the route check; CPU tensors are
+    then refused as not on a card."""
+    args = _launcher_args(D=D)
+    for i in (0, 1, 2, 3, 6):
+        args[i] = torch.zeros((1, T, 2, D))
+    with pytest.raises(ValueError, match="CUDA|card|cuda"):
+        wkv6_backward_cuda(*args, kind=kind)
 
 
 def test_backward_launcher_refuses_an_empty_axis():
