@@ -29,26 +29,37 @@
 3. The Table-I kernels (phase_table1_kernels): gemm_os at llama3.2-1b's
    ffn_in GEMM site (prefill in bf16 and float32, decode in bf16, the
    fused bias+silu and bias+gelu epilogues in both types, a ragged
-   shape, both tile grids bit for bit), conv2d_os at the paper's Table-I
-   CONV as a batch of 32 edge images (bf16, float32) and as Listing 2
-   writes it (one input channel), and qgemm_int8 at the ffn_in site, bit
-   for bit; each held against its plain version and timed like the
-   others; then qgemm_int8 at K 140000 (all -128: K * 16384 wrapped to
-   int32, times the scales; and random), conv2d_os over 65536 images and
-   with 12 x 12 taps (the streaming route).  Then holds each row of the
-   kernel path's entry point, repro_torch.bench.bench_kernel_micro, on
-   the row's own inputs against
-   the plain version, drives the entry point, and checks that each
-   kernel launched exactly as often as its rows called it, on the routes
-   the rule gives them.
-   Every kernel has two routes, chosen by its kernel.route (tensor_core
-   and simt; wkv6 step and chunked); every case of steps 2 and 3 prints
-   the route it ran on, from the ops' per-route launch counts, and fails
-   unless it is the one the rule gives (bf16, and int8, at the full-size
-   shapes on the tensor cores; wkv6 prefill on chunked).  Where a case
-   runs on the redesigned route, the kernel that route replaced is held
-   and timed on the same inputs (prev_ms).  torch._int_mm is timed in
-   every layout of b it accepts.
+   shape, both tile grids bit for bit, two calls bit for bit), conv2d_os
+   at the paper's Table-I CONV as a batch of 32 edge images (bf16,
+   float32) and as Listing 2 writes it (one input channel), and
+   qgemm_int8 at the ffn_in site, bit for bit; each held against its
+   plain version and timed like the others.  The float32 cases run on
+   the tf32x3 routes (three TF32 products a term): each also prints its
+   max error against a float64 product beside the library call's own
+   float32 error (TF32 off) on the same inputs, and fails past
+   TF32X3_ERR_FACTOR times it.  Then qgemm_int8 at K 140000 (all -128: K
+   * 16384 wrapped to int32, times the scales; and random), conv2d_os
+   over 65536 images (float32 on simt, beside the tf32x3 entry on the
+   same inputs) and with 12 x 12 taps (the streaming route), and
+   conv2d_os float32 on both the tf32x3 and SIMT entries across output
+   sizes and channel counts (CONV_FILL), beside the route the rule
+   picks.  Then
+   holds each row of the kernel path's entry point,
+   repro_torch.bench.bench_kernel_micro, on the row's own inputs against
+   the plain version, times its float32 rows' kernels (gemm_os_256_torch
+   on tf32x3, beside the SIMT kernel it replaced; decode_attn_torch on
+   simt) beside the library calls, drives the entry point, and checks
+   that each kernel launched exactly as often as its rows called it, on
+   the routes the rule gives them (gemm_os: 22 tensor_core, 22 tf32x3).
+   Every kernel has at least two routes, chosen by its kernel.route
+   (tensor_core, tf32x3 and simt; wkv6 step and chunked); every case of
+   steps 2 and 3 prints the route it ran on, from the ops' per-route
+   launch counts, and fails unless it is the one the rule gives (bf16,
+   and int8, at the full-size shapes on the tensor cores, float32 on
+   tf32x3, conv2d_os from 12 input channels; wkv6 prefill on chunked).
+   Where a case runs on a redesigned route, the kernel that route
+   replaced is held and timed on the same inputs (prev_ms).
+   torch._int_mm is timed in every layout of b it accepts.
 4. The CGRA flow (phase_cgra): compiles the ten-kernel verification set
    (six Table-I kernels at small dims, four DSL kernels) on the host with
    repro_torch.core.Toolchain, verifies each over 1024 seeds on the card
@@ -177,10 +188,14 @@ the compile pool, and leave the card idle most of the time.  Step 14's
 subprocesses run alongside step 13.  Past 1140 s the run prints every
 thread's stack, stops its child processes and exits 1.
 15. Prints each phase's seconds, the kernels as one JSON line (launches:
-   the sums over the serving paths of steps 6-8 and the kernel path; the
-   wkv6 entry at the training shape and the wkv6_backward entry, "path":
-   "train", the training runs' and phase_checkpoint's rwkv6 steps'),
-   the card's name and power limit, and as its last line
+   the sums over the serving paths of steps 6-8 and the kernel path, on
+   the entry's kernel_route where it has one; the wkv6 entry at the
+   training shape and the wkv6_backward entry, "path": "train", the
+   training runs' and phase_checkpoint's rwkv6 steps'; the gemm_os and
+   conv2d_os entries' f32_* fields, their float32 case on tf32x3, with
+   its split of the call by kernel; path_f32_* fields on the gemm_os and
+   decode_attn entries, the kernel path's float32 rows), the card's name
+   and power limit, and as its last line
    {"ok": true, "device": {...}}.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -214,6 +229,9 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_INT8_OPS = 1979e12
+# TF32 tensor rate, the card's fastest for float32 inputs: a float32
+# product's bound is its 2MNK over this rate (tf32x3_bound)
+PEAK_TF32 = 495e12
 L2_BYTES = 50 * 2 ** 20
 
 # Serving shapes: 8 slots of 2048 positions; llama3.2-1b has 32 query and
@@ -250,6 +268,9 @@ PROFILE_STEPS = 4
 TABLE1_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-4)}
 GEMM_DECODE_M = 8
 GEMM_RAGGED = (1000, 2000, 777)
+# A tf32x3 route's max error against a float64 product may be this many
+# times the library call's own float32 error (TF32 off) on the same inputs
+TF32X3_ERR_FACTOR = 8
 # The CGRA flow's verification set and its seed batches (phase_cgra)
 CGRA_SET = ("GEMM", "GEMM-U", "GEMM-U-C", "CONV", "CONV-U-C-1",
             "CONV-U-C-2", "dwconv", "avgpool2x2", "gemm-bias-relu",
@@ -395,6 +416,24 @@ def roofline(nbytes: float, ops: float, rate: float):
     t_ops = ops / rate
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
                                      else "operations")
+
+
+def tf32x3_bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by, design_ms) of a float32 product on a tf32x3
+    route: the bound is the function's own flops at the TF32 rate against
+    its bytes; the route's three TF32 products a term put the design's
+    own ceiling at 3 * flops over that rate, printed beside the bound and
+    never as it."""
+    bound_ms, bound_by = roofline(nbytes, flops, PEAK_TF32)
+    return bound_ms, bound_by, roofline(nbytes, 3 * flops, PEAK_TF32)[0]
+
+
+def _tf32x3_bounds_text(ms: float, bound_ms: float, bound_by: str,
+                        design_ms: float) -> str:
+    return (f"bound {bound_ms:.5f} ms ({bound_by}, 2MNK at the TF32 rate), "
+            f"{100 * bound_ms / ms:.1f}% of bound; the design's ceiling "
+            f"(3 TF32 products) {design_ms:.5f} ms "
+            f"({100 * design_ms / ms:.1f}%)")
 
 
 def decode_attn_bound(lengths, dtype):
@@ -1053,15 +1092,31 @@ def _held(label: str, got, want, tol) -> float:
     return err
 
 
+def _tf32x3_error(label: str, got, library, want64):
+    """(max |got - want64|, max |library - want64|): a tf32x3 route's error
+    against a float64 result beside the library call's own float32 error
+    (TF32 off) on the same inputs; raises past TF32X3_ERR_FACTOR times
+    it."""
+    e64 = (got.double() - want64).abs().max().item()
+    lib64 = (library.double() - want64).abs().max().item()
+    if e64 > TF32X3_ERR_FACTOR * lib64:
+        raise AssertionError(f"{label} float32: max error against float64 "
+                             f"{e64} is over {TF32X3_ERR_FACTOR}x the "
+                             f"library's {lib64}")
+    return e64, lib64
+
+
 def _simt_gemm(a, b):
     """a @ b on the SIMT route's C entry, whatever the rule would choose:
-    in bfloat16 the kernel the tensor-core route replaced, run here as the
-    redesign's "before".  bf16 output, no bias, 2-D grid."""
-    from repro_torch.kernels.gemm_os.kernel import _entries
+    the kernel the tensor-core routes (bf16 and tf32x3) replaced, run here
+    as the redesigns' "before".  Output in a's dtype, no bias, 2-D
+    grid."""
+    from repro_torch.kernels.gemm_os.kernel import _DTYPES, _entries
     (M, K), N = a.shape, b.shape[1]
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    code = _DTYPES[a.dtype]
     err = _entries()[0](a.data_ptr(), b.data_ptr(), None, out.data_ptr(), M,
-                        N, K, 1, 1, 0, 0,
+                        N, K, code, code, 0, 0,
                         torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"SIMT gemm_os launch failed: CUDA error {err}")
@@ -1069,18 +1124,15 @@ def _simt_gemm(a, b):
 
 
 def _simt_conv(x, w):
-    """As _simt_gemm, for conv2d_os's SIMT route on bfloat16 x, w."""
-    from repro_torch.kernels.conv2d_os.kernel import _entries
-    N, H, W, Cin = x.shape
-    KH, KW, _, Cout = w.shape
-    out = torch.empty((N, H - KH + 1, W - KW + 1, Cout), dtype=x.dtype,
-                      device=x.device)
-    err = _entries()["simt"](x.data_ptr(), w.data_ptr(), out.data_ptr(), N,
-                             H, W, Cin, Cout, KH, KW, 1, 1,
-                             torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"SIMT conv2d_os launch failed: CUDA error {err}")
-    return out
+    """As _simt_gemm, for conv2d_os's SIMT route."""
+    from repro_torch.kernels.conv2d_os.kernel import conv2d_os_cuda
+    return conv2d_os_cuda(x, w, kind="simt")[0]
+
+
+def _tf32x3_conv(x, w):
+    """As _simt_conv, for the tf32x3 route (float32)."""
+    from repro_torch.kernels.conv2d_os.kernel import conv2d_os_cuda
+    return conv2d_os_cuda(x, w, kind="tf32x3")[0]
 
 
 def _simt_qgemm(a, b, sa, sb):
@@ -1111,6 +1163,16 @@ C10_WKV6_T = {"step": 16, "chunked": 256}
 C10_QGEMM = (8, 140000, 16)
 C10_CONV = (("N 65536 (grid.z slices)", (65536, 4, 4, 8), (3, 3, 8, 16)),
             ("taps past shared memory", (2, 40, 40, 13), (12, 12, 13, 32)))
+# conv2d_os float32 by shape: the tf32x3 and SIMT entries on the same
+# inputs, 3 x 3 taps, about 2^18 output pixels a case.  (Cin, Cout, square
+# output side): C10's channels (8 -> 16) and Table-I's (64 -> 64) from 2 x
+# 2 outputs (C10's) to whole 16 x 16 tiles and past them, then Cin and
+# Cout across a tile's chunk at 64 x 64 outputs: where the conv route's
+# MIN_TF32_CIN comes from
+CONV_FILL = tuple(dict.fromkeys(
+    [(ci, co, o) for ci, co in ((8, 16), (64, 64)) for o in (2, 8, 17, 64)]
+    + [(ci, co, 64) for co in (16, 64)
+       for ci in (4, 8, 12, 16, 20, 24, 28, 32, 48)]))
 
 
 def _c10_decode_attn(card: str) -> None:
@@ -1243,18 +1305,116 @@ def _c10_table1(card: str) -> None:
             kind = ran_on(conv2d_os, conv_route(xs[3], ws[3], ws[0], ws[1],
                                                 dtype).kind,
                           f"conv2d_os {label}")
+            other = ""
+            if dtype == torch.float32 and kind in ("simt", "tf32x3"):
+                # the float32 route the rule passed over, same inputs
+                alt = _tf32x3_conv if kind == "simt" else _simt_conv
+                _held(f"conv2d_os {label} on the other route", alt(x, w),
+                      conv2d_ref(x, w), TABLE1_TOL[dtype])
+                alt_ms, _ = time_ms([lambda: alt(x, w)], 5, cyc)
+                other = (f", the {'tf32x3' if kind == 'simt' else 'simt'} "
+                         f"entry {alt_ms:.5f} ms")
             print(f"[c10] conv2d_os {label}: x {xs} w {ws} "
                   f"{str(dtype)[6:]} on the {kind} route: max_abs_err "
-                  f"{err:.3e}, {ms:.5f} ms [{card}]")
+                  f"{err:.3e}, {ms:.5f} ms{other} [{card}]")
+    _conv_fill_sweep(card)
 
 
-def phase_table1_kernels(card: str):
+def _conv_fill_sweep(card: str) -> None:
+    """conv2d_os float32 at CONV_FILL: the tf32x3 and SIMT entries, each
+    held to the plain version, timed on the same inputs beside the route
+    that route() picks."""
+    from repro_torch.bench import sleep_cycles_per_ms, time_ms
+    from repro_torch.kernels.conv2d_os.kernel import route as conv_route
+    from repro_torch.kernels.conv2d_os.ref import conv2d_ref
+
+    cyc = sleep_cycles_per_ms()
+    gen = torch.Generator(device="cuda").manual_seed(83)
+    for cin, cout, o in CONV_FILL:
+        nb = max(1, 2 ** 18 // (o * o))
+        x = torch.randn((nb, o + 2, o + 2, cin), generator=gen,
+                        device="cuda")
+        w = torch.randn((3, 3, cin, cout), generator=gen,
+                        device="cuda") / math.sqrt(9 * cin)
+        want = conv2d_ref(x, w)
+        ms = {}
+        for kind, fn in (("tf32x3", _tf32x3_conv), ("simt", _simt_conv)):
+            _held(f"conv2d_os {kind} {o}x{o} out", fn(x, w), want,
+                  TABLE1_TOL[torch.float32])
+            ms[kind], _ = time_ms([lambda fn=fn: fn(x, w)], 10, cyc)
+        picked = conv_route(cin, cout, 3, 3, torch.float32).kind
+        print(f"[conv fill] float32 N={nb} out {o}x{o} Cin={cin} "
+              f"Cout={cout} 3x3: tf32x3 {ms['tf32x3']:.5f} ms, simt "
+              f"{ms['simt']:.5f} ms ({ms['simt'] / ms['tf32x3']:.2f}x), "
+              f"route() picks {picked} [{card}]")
+        del x, w, want
+
+
+def _path_f32_row(name: str, op: str, args, route: str, cyc: float,
+                  card: str) -> dict:
+    """A float32 row of the kernel path, timed on its own inputs: its
+    kernel (gemm_os_256_torch on tf32x3, beside the SIMT kernel it
+    replaced; decode_attn_torch on SIMT), the plain version and the
+    library call (torch.matmul, TF32 off; scaled_dot_product_attention),
+    with the kernel's bound.  Returns the entry's path_f32_* fields."""
+    import torch.nn.functional as F
+    from repro_torch.bench import OPS, time_ms
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+    from repro_torch.kernels.gemm_os.ref import gemm_ref
+
+    kernel = OPS[op]
+    ms, _ = time_ms([lambda: kernel(*args)], 200, cyc)
+    prev_ms = None
+    if op == "gemm_os":
+        a, b = args
+        (m, k), n = a.shape, b.shape[1]
+        nbytes, flops = 4 * (m * k + k * n + m * n), 2 * m * n * k
+        plain_ms, _ = time_ms([lambda: gemm_ref(a, b)], 200, cyc)
+        library_ms, _ = time_ms([lambda: torch.matmul(a, b)], 200, cyc)
+        prev_ms, _ = time_ms([lambda: _simt_gemm(a, b)], 200, cyc)
+        bound_ms, bound_by, design_ms = tf32x3_bound(nbytes, flops)
+        library = "torch.matmul"
+    else:
+        q, k, v, lens = args
+        nb, hq, d = q.shape
+        hkv, S = k.shape[1], k.shape[2]
+        mask = (torch.arange(S, device=q.device)[None, :]
+                < lens[:, None])[:, None, None, :]
+        tokens = int(lens.sum().item())
+        nbytes = 4 * (2 * hkv * tokens * d + 2 * nb * hq * d) + 4 * nb
+        flops = 4 * hq * tokens * d
+        plain_ms, _ = time_ms([lambda: decode_attn_ref(*args)], 200, cyc)
+        library_ms, _ = time_ms([lambda: F.scaled_dot_product_attention(
+            q.view(nb, hq, 1, d), k, v, attn_mask=mask, enable_gqa=True)],
+            200, cyc)
+        bound_ms, bound_by = roofline(nbytes, flops,
+                                      PEAK_FLOPS[torch.float32])
+        design_ms = None
+        library = "scaled_dot_product_attention"
+    before = "" if prev_ms is None else \
+        f", SIMT route {prev_ms:.5f} ms ({prev_ms / ms:.2f}x the kernel)"
+    bounds = (f"bound {bound_ms:.6f} ms ({bound_by})" if design_ms is None
+              else _tf32x3_bounds_text(ms, bound_ms, bound_by, design_ms))
+    print(f"[bench] {name} timed on its inputs: {op} on the {route} route "
+          f"{ms:.5f} ms{before}, plain {plain_ms:.5f} ms, {library} "
+          f"{library_ms:.5f} ms ({ms / library_ms:.2f}x), {bounds} "
+          f"[{card}]")
+    return dict(path_f32_row=name, path_f32_kernel_route=route,
+                path_f32_ms=ms, path_f32_plain_ms=plain_ms,
+                path_f32_library_ms=library_ms, path_f32_prev_ms=prev_ms,
+                path_f32_bound_ms=bound_ms, path_f32_bound_by=bound_by,
+                path_f32_design_ms=design_ms)
+
+
+def phase_table1_kernels(card: str, prior: list):
     """gemm_os, conv2d_os and qgemm_int8 against their plain versions at
     full size, timed beside their bounds and the closest PyTorch call;
     then the kernel path's entry point, bench_kernel_micro: every row's
-    own inputs held against the plain versions, and each kernel's
-    launches held to the calls its rows made.  Returns (entries of the
-    kernels line, launches on the kernel path)."""
+    own inputs held against the plain versions, the float32 rows' kernels
+    timed on them (path_f32_* fields of the gemm_os entry and of
+    ``prior``'s decode_attn entry), and each kernel's launches held to the
+    calls its rows made.  Returns (entries of the kernels line, launches
+    on the kernel path)."""
     import torch.nn.functional as F
     from repro_torch.bench import (OPS, SHAPES, bench_kernel_micro,
                                    micro_cases, sleep_cycles_per_ms,
@@ -1284,14 +1444,16 @@ def phase_table1_kernels(card: str):
     entries = []
     M, K, N = SHAPES["gemm"]
 
-    # gemm_os at the ffn_in site; the bf16 prefill is the kernels line's.
-    # The bf16 cases take the tensor-core route, float32 the SIMT one; each
-    # case's checks run on the route it asserts, then it is timed.
+    # gemm_os at the ffn_in site; the bf16 prefill is the kernels line's,
+    # the float32 one its f32_* fields.  The bf16 cases take the
+    # tensor-core route, float32 tf32x3; each case's checks run on the
+    # route it asserts, then it is timed beside the SIMT kernel the route
+    # replaced.
     gemm_os.launches_by_route.update(dict.fromkeys(gemm_os.launches_by_route,
                                                    0))
     for label, m, dtype, want in (
             ("prefill", M, torch.bfloat16, "tensor_core"),
-            ("prefill", M, torch.float32, "simt"),
+            ("prefill", M, torch.float32, "tf32x3"),
             ("decode", GEMM_DECODE_M, torch.bfloat16, "tensor_core")):
         isz = dtype.itemsize
         nbytes = (m * K + K * N + m * N) * isz
@@ -1299,11 +1461,13 @@ def phase_table1_kernels(card: str):
                 for _ in range(_copies(nbytes))]
         a, b = bufs[0]
         got = gemm_os(a, b)
+        again = gemm_os(a, b)
         flat = gemm_os(a, b, coalesce_grid=True)
         torch.cuda.synchronize()
         err = _held(f"gemm_os {label} {dtype}", got, gemm_ref(a, b),
                     TABLE1_TOL[dtype])
         _held(f"gemm_os {label} {dtype} 1-D tile grid", flat, got, None)
+        _held(f"gemm_os {label} {dtype} second call", again, got, None)
         checks = ""
         if label == "prefill":     # the epilogue on the route's fragments
             bias = randn((N,), torch.float32)
@@ -1312,6 +1476,12 @@ def phase_table1_kernels(card: str):
                           gemm_os(a, b, bias, activation=act),
                           gemm_ref(a, b, bias, act), TABLE1_TOL[dtype])
                 checks += f"; bias+{act} max_abs_err {e:.3e}"
+        if dtype == torch.float32:
+            e64, lib64 = _tf32x3_error(
+                f"gemm_os {label}", got, torch.matmul(a, b),
+                a.double() @ b.double())
+            checks += (f"; against float64 {e64:.3e}, torch.matmul's own "
+                       f"{lib64:.3e} ({e64 / lib64:.2f}x)")
         route = ran_on(gemm_os, want, f"gemm_os {label} {dtype}")
         ms, host_ms = time_ms([lambda a=a, b=b: gemm_os(a, b)
                                for a, b in bufs], 10, cyc)
@@ -1320,28 +1490,45 @@ def phase_table1_kernels(card: str):
         library_ms, _ = time_ms([lambda a=a, b=b: torch.matmul(a, b)
                                  for a, b in bufs], 50, cyc)
         ran_on(gemm_os, want, f"gemm_os {label} {dtype} timed")
-        prev = ""
-        if dtype == torch.bfloat16:   # the SIMT kernel it replaced
-            _held(f"gemm_os {label} {dtype} on the SIMT entry",
-                  _simt_gemm(a, b), gemm_ref(a, b), TABLE1_TOL[dtype])
-            prev_ms, _ = time_ms([lambda a=a, b=b: _simt_gemm(a, b)
-                                  for a, b in bufs], 10, cyc)
-            prev = f", SIMT route {prev_ms:.5f} ms"
-        bound_ms, bound_by = roofline(nbytes, 2 * m * N * K,
-                                      PEAK_FLOPS[dtype])
+        # the SIMT kernel the route replaced
+        _held(f"gemm_os {label} {dtype} on the SIMT entry",
+              _simt_gemm(a, b), gemm_ref(a, b), TABLE1_TOL[dtype])
+        prev_ms, _ = time_ms([lambda a=a, b=b: _simt_gemm(a, b)
+                              for a, b in bufs], 10, cyc)
+        flops = 2 * m * N * K
+        if route == "tf32x3":
+            bound_ms, bound_by, design_ms = tf32x3_bound(nbytes, flops)
+            by_kernel = _device_ms_by_name(gemm_os, bufs)
+            ran_on(gemm_os, want, f"gemm_os {label} {dtype} profiled")
+            bounds = (_tf32x3_bounds_text(ms, bound_ms, bound_by, design_ms)
+                      + f"; by kernel {json.dumps(by_kernel)}")
+        else:
+            bound_ms, bound_by = roofline(nbytes, flops, PEAK_FLOPS[dtype])
+            bounds = (f"bound {bound_ms:.5f} ms ({bound_by}), "
+                      f"{100 * bound_ms / ms:.1f}% of bound")
         print(f"[gemm_os] {str(dtype)[6:]} {label} M={m} K={K} N={N} on "
               f"the {route} route: max_abs_err {err:.3e} (tol rtol "
               f"{TABLE1_TOL[dtype][0]:.2e} atol {TABLE1_TOL[dtype][1]:.0e}),"
-              f" 1-D grid bit-equal{checks}; kernel {ms:.5f} ms (host "
-              f"{host_ms:.5f} ms per call){prev}, plain {plain_ms:.5f} ms, "
-              f"torch.matmul {library_ms:.5f} ms ({ms / library_ms:.2f}x), "
-              f"bound {bound_ms:.5f} ms ({bound_by}), "
-              f"{100 * bound_ms / ms:.1f}% of bound [{card}]")
+              f" 1-D grid and a second call bit-equal{checks}; kernel "
+              f"{ms:.5f} ms (host {host_ms:.5f} ms per call), SIMT route "
+              f"{prev_ms:.5f} ms ({prev_ms / ms:.2f}x the kernel), plain "
+              f"{plain_ms:.5f} ms, torch.matmul {library_ms:.5f} ms "
+              f"({ms / library_ms:.2f}x), {bounds} [{card}]")
         if label == "decode":     # beside the prefill's entry
             next(e for e in entries if e["name"] == "gemm_os").update(
                 decode_ms=ms, decode_library_ms=library_ms,
                 decode_bound_ms=bound_ms, decode_prev_ms=prev_ms)
-        if label == "prefill" and dtype == torch.bfloat16:
+        elif dtype == torch.float32:
+            next(e for e in entries if e["name"] == "gemm_os").update(
+                f32_kernel_route=route,
+                f32_shape=f"M={m} K={K} N={N} float32, llama3.2-1b ffn_in "
+                          f"prefill",
+                f32_max_abs_err=err, f32_err64=e64, f32_library_err64=lib64,
+                f32_ms=ms, f32_plain_ms=plain_ms, f32_library_ms=library_ms,
+                f32_prev_ms=prev_ms, f32_bound_ms=bound_ms,
+                f32_bound_by=bound_by, f32_design_ms=design_ms,
+                f32_by_kernel_ms=by_kernel)
+        else:
             entries.append(dict(
                 name="gemm_os", route="cuda", kernel_route=route,
                 source="src/repro_torch/csrc/gemm_os.cu",
@@ -1367,13 +1554,24 @@ def phase_table1_kernels(card: str):
               f"bit-equal")
 
     # conv2d_os: Table-I CONV as a batched edge layer; the bf16 one is the
-    # kernels line's.  Then Listing 2 as written (one image, Cin = 1).
+    # kernels line's, the float32 one its f32_* fields.  Then Listing 2 as
+    # written (one image, Cin = 1).
     n, H, W, Cin, Cout, KS = SHAPES["conv"]
     OH, OW = H - KS + 1, W - KS + 1
     conv2d_os.launches_by_route.update(
         dict.fromkeys(conv2d_os.launches_by_route, 0))
+
+    def library_args(x, w):
+        """cuDNN's arguments on the same NHWC memory, viewed as
+        channels-last NCHW."""
+        return x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+
+    def library_conv(x, w):
+        return F.conv2d(*library_args(x, w)).permute(0, 2, 3, 1)
+
     for dtype, want in ((torch.bfloat16, "tensor_core"),
-                        (torch.float32, "simt")):
+                        (torch.float32, "tf32x3")):
         isz = dtype.itemsize
         nbytes = (n * H * W * Cin + KS * KS * Cin * Cout
                   + n * OH * OW * Cout) * isz
@@ -1382,37 +1580,52 @@ def phase_table1_kernels(card: str):
                 for _ in range(_copies(nbytes))]
         x, w = bufs[0]
         got = conv2d_os(x, w)
+        again = conv2d_os(x, w)
         torch.cuda.synchronize()
         err = _held(f"conv2d_os {dtype}", got, conv2d_ref(x, w),
                     TABLE1_TOL[dtype])
+        _held(f"conv2d_os {dtype} second call", again, got, None)
+        checks = ""
+        if dtype == torch.float32:
+            e64, lib64 = _tf32x3_error(
+                "conv2d_os", got, library_conv(x, w),
+                library_conv(x.double(), w.double()))
+            checks = (f"; against float64 {e64:.3e}, F.conv2d's own "
+                      f"{lib64:.3e} ({e64 / lib64:.2f}x)")
         route = ran_on(conv2d_os, want, f"conv2d_os {dtype}")
-        # cuDNN on the same NHWC memory, viewed as channels-last NCHW
-        lib = [(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)) for x, w in bufs]
         ms, host_ms = time_ms([lambda x=x, w=w: conv2d_os(x, w)
                                for x, w in bufs], 20, cyc)
         plain_ms, _ = time_ms([lambda x=x, w=w: conv2d_ref(x, w)
                                for x, w in bufs], 5, cyc)
+        lib = [library_args(x, w) for x, w in bufs]
         library_ms, _ = time_ms([lambda x=x, w=w: F.conv2d(x, w)
                                  for x, w in lib], 50, cyc)
         ran_on(conv2d_os, want, f"conv2d_os {dtype} timed")
-        prev = ""
-        if dtype == torch.bfloat16:   # the SIMT kernel it replaced
-            _held(f"conv2d_os {dtype} on the SIMT entry", _simt_conv(x, w),
-                  conv2d_ref(x, w), TABLE1_TOL[dtype])
-            prev_ms, _ = time_ms([lambda x=x, w=w: _simt_conv(x, w)
-                                  for x, w in bufs], 20, cyc)
-            prev = f", SIMT route {prev_ms:.5f} ms"
-        bound_ms, bound_by = roofline(
-            nbytes, 2 * n * OH * OW * Cout * KS * KS * Cin, PEAK_FLOPS[dtype])
+        # the SIMT kernel the route replaced
+        _held(f"conv2d_os {dtype} on the SIMT entry", _simt_conv(x, w),
+              conv2d_ref(x, w), TABLE1_TOL[dtype])
+        prev_ms, _ = time_ms([lambda x=x, w=w: _simt_conv(x, w)
+                              for x, w in bufs], 20, cyc)
+        flops = 2 * n * OH * OW * Cout * KS * KS * Cin
+        if route == "tf32x3":
+            bound_ms, bound_by, design_ms = tf32x3_bound(nbytes, flops)
+            by_kernel = _device_ms_by_name(conv2d_os, bufs)
+            ran_on(conv2d_os, want, f"conv2d_os {dtype} profiled")
+            bounds = (_tf32x3_bounds_text(ms, bound_ms, bound_by, design_ms)
+                      + f"; by kernel {json.dumps(by_kernel)}")
+        else:
+            bound_ms, bound_by = roofline(nbytes, flops, PEAK_FLOPS[dtype])
+            bounds = (f"bound {bound_ms:.5f} ms ({bound_by}), "
+                      f"{100 * bound_ms / ms:.1f}% of bound")
         print(f"[conv2d_os] {str(dtype)[6:]} N={n} H=W={H} Cin={Cin} "
               f"Cout={Cout} {KS}x{KS} on the {route} route: max_abs_err "
               f"{err:.3e} (tol rtol {TABLE1_TOL[dtype][0]:.2e} atol "
-              f"{TABLE1_TOL[dtype][1]:.0e}); kernel {ms:.5f} ms (host "
-              f"{host_ms:.5f} ms per call){prev}, plain {plain_ms:.5f} ms, "
-              f"F.conv2d {library_ms:.5f} ms ({ms / library_ms:.2f}x), "
-              f"bound {bound_ms:.5f} ms ({bound_by}), "
-              f"{100 * bound_ms / ms:.1f}% of bound [{card}]")
+              f"{TABLE1_TOL[dtype][1]:.0e}), a second call bit-equal"
+              f"{checks}; kernel {ms:.5f} ms (host {host_ms:.5f} ms per "
+              f"call), SIMT route {prev_ms:.5f} ms ({prev_ms / ms:.2f}x the "
+              f"kernel), plain {plain_ms:.5f} ms, F.conv2d "
+              f"{library_ms:.5f} ms ({ms / library_ms:.2f}x), {bounds} "
+              f"[{card}]")
         if dtype == torch.bfloat16:
             entries.append(dict(
                 name="conv2d_os", route="cuda", kernel_route=route,
@@ -1423,6 +1636,16 @@ def phase_table1_kernels(card: str):
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                 prev_ms=prev_ms))
+        else:
+            next(e for e in entries if e["name"] == "conv2d_os").update(
+                f32_kernel_route=route,
+                f32_shape=f"N={n} H=W={H} Cin={Cin} Cout={Cout} {KS}x{KS} "
+                          f"float32, Table-I CONV batched",
+                f32_max_abs_err=err, f32_err64=e64, f32_library_err64=lib64,
+                f32_ms=ms, f32_plain_ms=plain_ms, f32_library_ms=library_ms,
+                f32_prev_ms=prev_ms, f32_bound_ms=bound_ms,
+                f32_bound_by=bound_by, f32_design_ms=design_ms,
+                f32_by_kernel_ms=by_kernel)
         del bufs, lib
     x, w = randn((1, H, W, 1), torch.float32), randn((KS, KS, 1, Cout),
                                                      torch.float32)
@@ -1533,6 +1756,11 @@ def phase_table1_kernels(card: str):
               f"{[tuple(a.shape) for a in args]} {str(dtype)[6:]}, "
               f"max_abs_err {err:.3e} (tol "
               f"{'bit-equal' if tol is None else tol})")
+        if dtype == torch.float32 and op in ("gemm_os", "decode_attn"):
+            fields = _path_f32_row(name, op, args, row_route[name], cyc,
+                                   card)
+            target = entries if op == "gemm_os" else prior
+            next(e for e in target if e["name"] == op).update(fields)
     torch.cuda.synchronize()
     routed = {"gemm_os": gemm_os, "conv2d_os": conv2d_os,
               "qgemm_int8": qgemm_int8, "decode_attn": decode_attn}
@@ -1556,14 +1784,19 @@ def phase_table1_kernels(card: str):
     if launches != calls:
         raise AssertionError(f"kernel path launches {launches}, its rows "
                              f"called {calls}")
-    if by_route != want_by_route or any(
-            by_route[op]["tensor_core"] == 0
-            for op in ("gemm_os", "conv2d_os", "qgemm_int8")):
+    if by_route != want_by_route or by_route["gemm_os"]["tf32x3"] == 0 or \
+            any(by_route[op]["tensor_core"] == 0
+                for op in ("gemm_os", "conv2d_os", "qgemm_int8")):
         raise AssertionError(f"kernel path launches by route {by_route}, "
                              f"its rows' routes {want_by_route}")
     print(f"[bench] launches on the kernel path: {launches}; by route "
           f"{by_route}")
-    return entries, {e["name"]: launches[e["name"]] for e in entries}
+    next(e for e in entries if e["name"] == "gemm_os")["path_f32_launches"] = \
+        by_route["gemm_os"]["tf32x3"]
+    # the entries' launches by route, so that each entry reads its own
+    return entries, {**{e["name"]: launches[e["name"]] for e in entries},
+                     **{f"{e['name']}:{r}": c for e in entries
+                        for r, c in by_route[e["name"]].items()}}
 
 
 def _serve_spec(cfg):
@@ -3764,7 +3997,7 @@ def main() -> int:
         lap("build")
         entries = [phase_decode_attn_check(card), *phase_wkv6_check(card)]
         lap("decode_attn and wkv6 checks")
-        table1, launches = phase_table1_kernels(card)
+        table1, launches = phase_table1_kernels(card, entries)
         entries += table1
         lap("Table-I kernels and the kernel path")
         cgra = start_cgra_process(tmp)

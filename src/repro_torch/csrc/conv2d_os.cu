@@ -14,11 +14,14 @@
 // OH x OW is tiled across blocks.
 //
 // Bound on the card.  At the paper's Table-I CONV problem run as a batched
-// edge layer (N 32, 66 x 66 x 64 in, 3 x 3 taps, 64 out) the 9.66 GFLOP
-// take 0.144 ms at the float32 rate; in bf16 the 34.7 MB moved (0.010 ms)
-// and the operations at the tensor rate (0.0098 ms) are about even.
+// edge layer (N 32, 66 x 66 x 64 in, 3 x 3 taps, 64 out) float32 inputs
+// move 69.4 MB (0.0207 ms at the HBM rate), more than the 9.66 GFLOP take
+// at the card's fastest rate for float32 inputs, TF32's (0.0195 ms); the
+// tf32x3 route below does three TF32 products of each, a design ceiling
+// of 0.0586 ms.  In bf16 the 34.7 MB moved (0.010 ms) and the operations
+// at the tensor rate (0.0098 ms) are about even.
 //
-// Two routes, chosen by the wrapper from the shape, the dtype and the
+// Four routes, chosen by the wrapper from the shape, the dtype and the
 // pointers' alignment (kernels/conv2d_os/kernel.py: route), one C entry
 // point each:
 //
@@ -46,9 +49,51 @@
 //     source bytes); pixels past OH or OW and channels past Cout are not
 //     stored.
 //
-// repro_conv2d_os, the SIMT route: float32 (IEEE FMAs, no TF32), the
-// bfloat16 shapes with Cin or Cout not a multiple of 8 (Listing 2's
-// Cin = 1 among them), and bfloat16 taps too wide for the other route.
+// repro_conv2d_os_tf32x3, the float32 tensor-core route: float32 with Cin
+// and Cout multiples of 4, 16-byte aligned pointers and taps whose patch
+// buffers fit in shared memory (all up to 10 x 10; not 1 x 25 or wider).
+// One TF32 product breaks the 1e-4 float32 bar, so each operand is split
+// into two TF32 numbers, x = hi + lo (hopper.cuh: split_tf32, to 2^-22
+// relative), and each product is taken as x_lo w_hi + x_hi w_lo + x_hi
+// w_hi: three TF32 products, the cross terms first.  An implicit GEMM on
+// wgmma:
+//   * A block owns 16 x 16 output pixels of one image (M, 4 x 64) and 64
+//     output channels (N).  Each of its 4 warpgroups takes 4 output rows,
+//     one m64n64 float32 accumulator (32 floats a thread).
+//   * A is the input.  Each thread loads its wgmma A fragment (mma.m16n8k8's
+//     layout: a warp's 16 rows are 16 pixels of one output row) from the
+//     staged patch at the tap's shift, by 32-bit loads, and splits it in
+//     registers; wgmma takes A from registers.  B, the weights, must be
+//     K-major in shared memory for .tf32.  A split pass (one extra
+//     launch) writes each (tap, chunk of 32 input channels, tile of 64
+//     output channels) as a hi and a lo tile in wgmma's K-major layout
+//     without swizzle (core matrices of 8 output x 4 input channels) into
+//     scratch the wrapper allocates, so that a step's weights are one
+//     contiguous 16 KB copy.
+//   * Cin goes in chunks of 32.  A chunk's patch with its halo is staged
+//     by 16-byte cp.async at 144 bytes a pixel (128 of data), so a warp's
+//     A loads fall on 32 distinct banks.  2 patch buffers and 3 weight
+//     stages: a chunk's patch is issued two steps before its first tap,
+//     with that step's weights.  Shared memory 139 KB at 3 x 3 (one block
+//     of 16 warps an SM), 224 KB at 10 x 10.
+//   * Per step (a tap, 32 channels) the 12 wgmma m64n64k8 go into a zeroed
+//     partial sum, which IEEE adds carry into the accumulator.  The tensor
+//     cores' float32 accumulation truncates: summed straight into the
+//     accumulator, the error against float64 grows with the taps and
+//     channels summed, past the 8x of cuDNN's float32 error that the
+//     route is held to (PERF.md).
+//   * Each step ends in a barrier and a wait for its wgmma, so deeper
+//     steps pay.
+//   * An output that comes out infinite or NaN (a non-finite input, or a
+//     float32 overflow) is recomputed in the epilogue by a plain float32
+//     sum over its taps and channels, so that it is what the plain
+//     version gives (∞ x w through the split adds ∞ w_hi and ∞ w_lo, NaN
+//     where their signs differ).  Finite inputs never take that path.
+//
+// repro_conv2d_os, the SIMT route: float32 (IEEE FMAs, no TF32) and
+// bfloat16 with Cin or Cout not a multiple of 4 or 8 (Listing 2's Cin =
+// 1 among them), unaligned pointers, and taps too wide for the
+// tensor-core routes.
 //   * A block owns a 16 x 16 patch of output pixels of one image and 64
 //     output channels; each of its 256 threads keeps 8 pixels (one column
 //     of the patch) x 8 channels of float32 accumulator in registers.
@@ -537,6 +582,306 @@ int launch(const void* x, const void* w, void* out, int N, int H, int W,
 
 }  // namespace tc
 
+namespace tf32x3 {
+
+constexpr int TH = 16, TW = 16;     // output pixels of a block: M = 4 x 64
+constexpr int BCO = 64;             // output channels of a block: N
+constexpr int CC = 32;              // input channels of a step: K = 4 x 8
+constexpr int PSTR = CC + 4;        // floats a staged pixel: 36 (144 bytes)
+constexpr int WTILE = CC * BCO;     // floats of a step's hi (or lo) weights
+constexpr int WFLOATS = 2 * WTILE;  // a step's split weights: hi, then lo
+constexpr int PATCHES = 2;          // patch buffers: chunks in flight
+constexpr int WSTAGES = 3;          // weight stages: steps in flight
+constexpr int kThreads = 512;       // 4 warpgroups of 4 rows x 64 channels
+constexpr int kSplitThreads = 256;
+
+// Shared memory of a launch with KH x KW taps, in bytes (the wrapper
+// repeats this sum): PATCHES patch buffers, then WSTAGES weight stages.
+int smem_bytes(int KH, int KW) {
+  return (PATCHES * (TH + KH - 1) * (TW + KW - 1) * PSTR +
+          WSTAGES * WFLOATS) *
+         static_cast<int>(sizeof(float));
+}
+
+using repro::hopper::cp_async16;
+using repro::hopper::cp_async_commit;
+using repro::hopper::cp_async_wait;
+using repro::hopper::fence_proxy_async;
+using repro::hopper::fence_regs;
+using repro::hopper::is_finite;
+using repro::hopper::split_tf32;
+using repro::hopper::wgmma_commit;
+using repro::hopper::wgmma_fence;
+using repro::hopper::wgmma_wait;
+
+// wgmma shared-memory descriptor without swizzle (the interleaved
+// canonical layout): core matrices of 8 rows x 16 bytes, K-adjacent ones
+// lbo bytes apart, 8-row groups sbo bytes apart.
+__device__ __forceinline__ uint64_t desc_noswizzle(uint32_t addr,
+                                                   uint32_t lbo,
+                                                   uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// D[64 x 64] += A[64 x 8] @ B[8 x 64], TF32, A from registers (each warp
+// of the warpgroup 16 rows, as mma.m16n8k8's A fragment), B K-major in
+// shared memory; scale_d 0 writes D = A B.
+__device__ __forceinline__ void wgmma_m64n64k8_rs(float (&d)[32],
+                                                  const float* a,
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])),
+        "r"(__float_as_uint(a[2])), "r"(__float_as_uint(a[3])), "l"(db),
+        "r"(scale_d));
+}
+
+// Floats of the split weights of a call (the scratch the wrapper
+// allocates): per (tap, chunk of CC input channels, tile of BCO output
+// channels) a hi and a lo tile of CC x BCO, each laid out for wgmma as
+// [CC / 4][BCO][4] (four input channels of one output channel are 16
+// bytes; zeros past Cin and Cout).
+long long split_weight_floats(int KH, int KW, int Cin, int Cout) {
+  return static_cast<long long>(KH) * KW * ((Cin + CC - 1) / CC) *
+         ((Cout + BCO - 1) / BCO) * WFLOATS;
+}
+
+// The weights' split pass: one thread a (hi, lo) pair of w2's layout.
+__global__ void __launch_bounds__(kSplitThreads)
+    split_weights_kernel(const float* __restrict__ w, float* __restrict__ w2,
+                         int Cin, int Cout, int chunks, int ctiles,
+                         long long pairs) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kSplitThreads + threadIdx.x;
+  if (i >= pairs) return;
+  const int off = static_cast<int>(i % WTILE);  // (kk BCO + co) 4 + e
+  const long long tile = i / WTILE;  // ((tap chunks + chunk) ctiles + ct)
+  const int e = off % 4, co_l = (off / 4) % BCO, kk = off / (4 * BCO);
+  const int ct = static_cast<int>(tile % ctiles);
+  const int chunk = static_cast<int>((tile / ctiles) % chunks);
+  const int tap = static_cast<int>(tile / ctiles / chunks);
+  const int ci = chunk * CC + 4 * kk + e, co = ct * BCO + co_l;
+  const float v = (ci < Cin && co < Cout)
+                      ? w[(static_cast<size_t>(tap) * Cin + ci) * Cout + co]
+                      : 0.f;
+  float hi, lo;
+  split_tf32(v, hi, lo);
+  w2[tile * WFLOATS + off] = hi;
+  w2[tile * WFLOATS + WTILE + off] = lo;
+}
+
+// out[n, oh, ow, co] by IEEE float32 FMAs over (kh, kw, ci) in order: the
+// epilogue's value for an output whose split sum is not finite.
+__device__ __noinline__ float conv_f32(const float* __restrict__ xn,
+                                       const float* __restrict__ w, int oh,
+                                       int ow, int co, int W, int Cin,
+                                       int Cout, int KH, int KW) {
+  float s = 0.f;
+  for (int kh = 0; kh < KH; ++kh)
+    for (int kw = 0; kw < KW; ++kw) {
+      const float* xp = xn + (static_cast<size_t>(oh + kh) * W + ow + kw) * Cin;
+      const float* wp =
+          w + (static_cast<size_t>(kh * KW + kw) * Cin) * Cout + co;
+      for (int ci = 0; ci < Cin; ++ci)
+        s = fmaf(xp[ci], wp[static_cast<size_t>(ci) * Cout], s);
+    }
+  return s;
+}
+
+// grid (tiles of the output plane, Cout tiles, N); kThreads threads.  w2
+// is the split pass's output; w the weights themselves, read only to
+// recompute a non-finite output.
+template <typename TO>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv2d_os_tf32x3_kernel(const float* __restrict__ x,
+                            const float* __restrict__ w2,
+                            const float* __restrict__ w, TO* __restrict__ out,
+                            int H, int W, int Cin, int Cout, int KH, int KW) {
+  extern __shared__ __align__(16) float smf[];
+  const int OH = H - KH + 1, OW = W - KW + 1;
+  const int PW = TW + KW - 1;
+  const int patch_floats = (TH + KH - 1) * PW * PSTR;
+  const uint32_t patches = static_cast<uint32_t>(__cvta_generic_to_shared(smf));
+  const uint32_t weights = patches + PATCHES * patch_floats * 4;
+
+  const int tiles_w = (OW + TW - 1) / TW;
+  const int oh0 = (blockIdx.x / tiles_w) * TH, ow0 = (blockIdx.x % tiles_w) * TW;
+  const int co0 = blockIdx.y * BCO;
+  const int n = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const float* xn = x + static_cast<size_t>(n) * H * W * Cin;
+  const int taps = KH * KW;
+  const int chunks = (Cin + CC - 1) / CC;
+  const int ctiles = (Cout + BCO - 1) / BCO;
+  const int steps = chunks * taps;
+
+  // Step s is (chunk s / taps, tap s % taps).  Its split weights (8 KB,
+  // contiguous in w2) go to stage s % WSTAGES; a chunk's patch with its
+  // halo to buffer chunk % PATCHES.  One cp.async group is committed per
+  // step (the prologue's, then each loop step's), so a step's group is
+  // done once all but the WSTAGES - 2 newest are.
+  auto load_patch = [&](int chunk) {
+    const uint32_t pb = patches + (chunk % PATCHES) * patch_floats * 4;
+    const int ci0 = chunk * CC;
+    const int groups = (TH + KH - 1) * PW * (CC / 4);
+    for (int i = tid; i < groups; i += kThreads) {
+      const int g = i % (CC / 4), pos = i / (CC / 4);
+      const int h = oh0 + pos / PW, ww = ow0 + pos % PW, ci = ci0 + 4 * g;
+      const bool in = h < H && ww < W && ci < Cin;  // Cin % 4 == 0
+      cp_async16(pb + (pos * PSTR + 4 * g) * 4,
+                 in ? xn + (static_cast<size_t>(h) * W + ww) * Cin + ci : x,
+                 in ? 16 : 0);
+    }
+  };
+  auto load_weights = [&](int s) {
+    const float* src =
+        w2 + (static_cast<size_t>((s % taps) * chunks + s / taps) * ctiles +
+              blockIdx.y) * WFLOATS;
+    const uint32_t dst = weights + (s % WSTAGES) * WFLOATS * 4;
+    for (int i = tid; i < WFLOATS / 4; i += kThreads)
+      cp_async16(dst + 16 * i, src + 4 * i, 16);
+  };
+  // The step at which chunk c + 1's patch is issued: WSTAGES - 1 steps
+  // before its first, so that it lands with that step's weights; but not
+  // before chunk c's first step, when its buffer is freed.  With one tap
+  // that is one step before: the step waits for it (wait_group 0).
+  auto patch_step = [&](int c) {
+    return max(c * taps, (c + 1) * taps - (WSTAGES - 1));
+  };
+
+  // Warpgroup wg computes output rows 4 wg .. 4 wg + 3 of the tile (its
+  // m64: 16 pixels a warp), all BCO channels.  In the A fragment g = lane
+  // / 4 picks the pixel (rows g, g + 8 of the warp's 16), t = lane % 4
+  // the input channel (k t, t + 4).
+  const int row = warp;  // 4 (warp / 4) + warp % 4
+  const int g = lane / 4, t = lane % 4;
+  float acc[32], part[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = part[i] = 0.f;
+
+  load_patch(0);
+#pragma unroll
+  for (int s = 0; s < WSTAGES - 1; ++s) {
+    if (s < steps) load_weights(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    const int chunk = s / taps, tap = s % taps, kh = tap / KW, kw = tap % KW;
+    if (chunk > 0 && tap == 0 && patch_step(chunk - 1) + WSTAGES - 1 > s)
+      cp_async_wait<0>();
+    else
+      cp_async_wait<WSTAGES - 2>();
+    fence_proxy_async();  // the weights, for wgmma's reads
+    __syncthreads();  // step s has landed; every warp is done with s - 1
+    if (s + WSTAGES - 1 < steps) load_weights(s + WSTAGES - 1);
+    if (chunk + 1 < chunks && s == patch_step(chunk)) load_patch(chunk + 1);
+    cp_async_commit();
+    const float* pb = smf + (chunk % PATCHES) * patch_floats;
+    const uint32_t wb = weights + (s % WSTAGES) * WFLOATS * 4;
+    float ahi[CC / 2], alo[CC / 2];  // [k8][4]
+#pragma unroll
+    for (int j = 0; j < CC / 8; ++j) {
+      const float* ap = pb + ((row + kh) * PW + g + kw) * PSTR + j * 8 + t;
+      split_tf32(ap[0], ahi[4 * j], alo[4 * j]);
+      split_tf32(ap[8 * PSTR], ahi[4 * j + 1], alo[4 * j + 1]);
+      split_tf32(ap[4], ahi[4 * j + 2], alo[4 * j + 2]);
+      split_tf32(ap[8 * PSTR + 4], ahi[4 * j + 3], alo[4 * j + 3]);
+    }
+    // The step's three products into a zeroed partial sum, then IEEE adds
+    // into the accumulator (see the note at the top).  In a weight tile
+    // the core matrices of 4 input channels are 64 x 16 bytes apart (lbo),
+    // those of 8 output channels 128 bytes (sbo).
+    fence_regs(part);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < CC / 8; ++j) {
+      const uint64_t bh = desc_noswizzle(wb + j * 2048, 1024, 128);
+      const uint64_t bl = desc_noswizzle(wb + WTILE * 4 + j * 2048, 1024, 128);
+      wgmma_m64n64k8_rs(part, alo + 4 * j, bh, j);
+      wgmma_m64n64k8_rs(part, ahi + 4 * j, bl, 1);
+      wgmma_m64n64k8_rs(part, ahi + 4 * j, bh, 1);
+    }
+    wgmma_commit();
+    fence_regs(part);
+    wgmma_wait<0>();
+    fence_regs(part);
+    fence_regs(ahi);  // the A registers stay live until the wgmma read them
+    fence_regs(alo);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] += part[i];
+  }
+  cp_async_wait<0>();
+
+  // Register 4 j + 2 h + e holds pixel ow0 + g + 8 h of output row oh0 +
+  // row, channel co0 + 8 j + 2 t + e.
+  const int oh = oh0 + row;
+  if (oh >= OH) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int ow = ow0 + g + 8 * h;
+    if (ow >= OW) continue;
+    TO* op = out + ((static_cast<size_t>(n) * OH + oh) * OW + ow) * Cout;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int co = co0 + 8 * j + 2 * t;
+      if (co >= Cout) continue;  // Cout % 4 == 0, so co + 1 < Cout as well
+      float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (!is_finite(v0))
+        v0 = conv_f32(xn, w, oh, ow, co, W, Cin, Cout, KH, KW);
+      if (!is_finite(v1))
+        v1 = conv_f32(xn, w, oh, ow, co + 1, W, Cin, Cout, KH, KW);
+      store2(op + co, v0, v1);
+    }
+  }
+}
+
+template <typename TO>
+int launch(const float* x, const float* w, void* out, float* scratch, int N,
+           int H, int W, int Cin, int Cout, int KH, int KW,
+           cudaStream_t stream) {
+  const int OH = H - KH + 1, OW = W - KW + 1;
+  const int tiles = ((OH + TH - 1) / TH) * ((OW + TW - 1) / TW);
+  const int smem = smem_bytes(KH, KW);
+  const int chunks = (Cin + CC - 1) / CC, ctiles = (Cout + BCO - 1) / BCO;
+  const long long pairs = split_weight_floats(KH, KW, Cin, Cout) / 2;
+  if ((pairs + kSplitThreads - 1) / kSplitThreads > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = cudaFuncSetAttribute(
+      conv2d_os_tf32x3_kernel<TO>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  split_weights_kernel<<<static_cast<int>((pairs + kSplitThreads - 1) /
+                                          kSplitThreads),
+                         kSplitThreads, 0, stream>>>(w, scratch, Cin, Cout,
+                                                     chunks, ctiles, pairs);
+  for (int n0 = 0; n0 < N; n0 += kMaxGridZ) {
+    const dim3 grid(tiles, ctiles, N - n0 < kMaxGridZ ? N - n0 : kMaxGridZ);
+    conv2d_os_tf32x3_kernel<TO><<<grid, kThreads, smem, stream>>>(
+        x + static_cast<size_t>(n0) * H * W * Cin, scratch, w,
+        static_cast<TO*>(out) + static_cast<size_t>(n0) * OH * OW * Cout, H,
+        W, Cin, Cout, KH, KW);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tf32x3
+
 bool bad_shape(int N, int H, int W, int Cin, int Cout, int KH, int KW,
                int bco) {
   return N <= 0 || Cin <= 0 || Cout <= 0 || KH <= 0 || KW <= 0 ||
@@ -607,5 +952,35 @@ extern "C" int repro_conv2d_os_tc(const void* x, const void* w, void* out,
   if (out_dtype == 1)
     return tc::launch<__nv_bfloat16>(x, w, out, N, H, W, Cin, Cout, KH, KW,
                                      st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The float32 tensor-core route: as repro_conv2d_os with x and w float32,
+// Cin and Cout multiples of 4, x, w, out and scratch 16-byte aligned, taps
+// whose patch buffers fit in shared memory, and scratch_floats, the
+// floats at scratch, at least tf32x3::split_weight_floats: 4096 KH KW
+// ceil(Cin / 32) ceil(Cout / 64).  Two launches on the stream: the
+// weights' split pass, then the convolution.  Returns
+// cudaErrorInvalidValue for anything else.
+extern "C" int repro_conv2d_os_tf32x3(const void* x, const void* w,
+                                      void* out, void* scratch,
+                                      long long scratch_floats, int N, int H,
+                                      int W, int Cin, int Cout, int KH,
+                                      int KW, int out_dtype, void* stream) {
+  if (bad_shape(N, H, W, Cin, Cout, KH, KW, tf32x3::BCO) || Cin % 4 != 0 ||
+      Cout % 4 != 0 || !aligned16(x) || !aligned16(w) || !aligned16(out) ||
+      !aligned16(scratch) || tf32x3::smem_bytes(KH, KW) > kMaxSmem ||
+      scratch_floats < tf32x3::split_weight_floats(KH, KW, Cin, Cout))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(w);
+  float* sf = static_cast<float*>(scratch);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (out_dtype == 0)
+    return tf32x3::launch<float>(xf, wf, out, sf, N, H, W, Cin, Cout, KH, KW,
+                                 st);
+  if (out_dtype == 1)
+    return tf32x3::launch<__nv_bfloat16>(xf, wf, out, sf, N, H, W, Cin, Cout,
+                                         KH, KW, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -9,7 +9,7 @@
 // output tile stays on chip while K streams through, and the epilogue
 // (bias, then the activation) runs once on it before the single store.
 //
-// Two routes, chosen by the wrapper from the shape, the dtype and the
+// Three routes, chosen by the wrapper from the shape, the dtype and the
 // pointers' alignment (kernels/gemm_os/kernel.py: route), one C entry
 // point each:
 //
@@ -41,21 +41,68 @@
 //   * The tensor maps are encoded on the host per call, through
 //     libcuda's cuTensorMapEncodeTiled (hopper.cuh: encoder, encode_2d).
 //
-// repro_gemm_os, the SIMT route: float32, and bfloat16 shapes TMA cannot
-// take.  Every product and sum is an IEEE float32 FMA on the CUDA cores,
-// so a float32 call agrees with a float32 matrix product to about 1e-6
-// relative (no TF32); its bound at the ffn_in site is the float32 rate,
-// 0.51 ms.  A block owns a 128 x 128 tile of C; each of its 256 threads
-// keeps an 8 x 8 float32 micro-tile in registers for the whole K loop.
-// Per step of BK = 8 the block stages an A tile (k-major) and a B tile
-// in shared memory as float32, converting bf16 on the way, and masks
+// repro_gemm_os_tf32x3, the float32 tensor-core route: float32 A and B
+// with K and N multiples of 4 (16-byte rows) and 16-byte aligned
+// pointers.  One TF32 product keeps 10 of float32's 23 mantissa bits and
+// breaks the 1e-4 float32 bar, so each operand is split into two TF32
+// numbers, x = hi + lo (hopper.cuh: split_tf32, to 2^-22 relative), and
+// each product is taken as a_lo b_hi + a_hi b_lo + a_hi b_hi: three TF32
+// products at 495 TFLOP/s in place of one float32 FMA at 67.  At the
+// ffn_in site the bound is the 34.4 GFLOP at TF32's rate, the card's
+// fastest for float32 inputs: 0.0694 ms; the design's three products put
+// its own ceiling at 0.208 ms.  What the design does:
+//   * For .tf32, wgmma reads both shared-memory operands K-major only (the
+//     transpose flag exists only for 16-bit types), and B is N-major.  Of
+//     the ways round that, a split pass (option a): one extra launch in
+//     the same call (split_kernel) writes A as [A_hi; A_lo], (2M, K), and
+//     B transposed as [B_hi^T; B_lo^T], (2N, K), into scratch the wrapper
+//     allocates.  At ffn_in that moves 8 + 64 MB in and 16 + 128 MB out,
+//     about 0.065 ms at the HBM rate, and leaves the main kernel a plain
+//     K-major TF32 GEMM: rewriting N-major tiles inside the block (as
+//     qgemm_int8.cu does for int8) would cost shared-memory passes under
+//     every k step, and mma.sync from registers reaches about 60% of the
+//     wgmma rate.  The split values have their low 13 bits 0, so wgmma
+//     reads them exactly.
+//   * The main kernel is the bf16 route's block (producer warp, TMA ring,
+//     128-byte swizzle, one or two consumer warpgroups) with float32
+//     stages of 32 k: A_hi, A_lo, B_hi and B_lo tiles, 64 KB a stage at
+//     128 x 128 (3 stages, one block an SM), 32 KB at 64 x 64 (3 stages,
+//     two blocks an SM).  The 64 x 64 tile is taken for M <= 64 and
+//     wherever 128 x 128 tiles would not fill the card (256^3: 16 blocks
+//     in place of 4).
+//   * Per stage the three products run as 12 wgmma m64nBNk8 into a
+//     partial accumulator (the two cross terms first), which is then
+//     added to the block's float32 sum with IEEE adds: the tensor cores'
+//     float32 accumulation truncates, a bias that grows with K past
+//     float32's own error (conv2d_os.cu measures it); over one stage of
+//     32 k it is negligible.  Registers: two accumulators, 128 floats a
+//     consumer thread at 128 x 128.
+//   * Tiles walk M fastest (grid (gm, gn)): a wave of blocks then shares
+//     each (2 x 128) x K tile of B^T across the M tiles, so B^T (128 MB at
+//     ffn_in, more than the 50 MB L2) is read from memory about once.
+//   * An output that comes out infinite or NaN (a non-finite input, or a
+//     float32 overflow) is recomputed in the epilogue as a plain float32
+//     dot product of A's row and B's column, so that it is what the plain
+//     version gives: ∞ x b through the split would add ∞ b_hi and ∞ b_lo,
+//     which is NaN where b_lo's sign differs from b's.  Finite inputs
+//     never take that path.
+//
+// repro_gemm_os, the SIMT route: the shapes the tensor-core routes cannot
+// take (K or N not a multiple of 4 in float32 or of 8 in bfloat16, or an
+// unaligned pointer).  Every product and sum is an IEEE float32 FMA on
+// the CUDA cores (no TF32), so the float32 rate caps it at 0.51 ms at
+// the ffn_in site.  A block owns a 128 x 128 tile of C; each of its 256
+// threads keeps an 8 x 8 float32 micro-tile in registers for the whole K
+// loop.  Per step of BK = 8 the block stages an A tile (k-major) and a B
+// tile in shared memory as float32, converting bf16 on the way, and masks
 // ragged edges itself (out of range loads read 0).
 //
-// On both routes coalesce_grid (Listing 4) launches a 1-D grid over
-// gm * gn tiles and recovers the tile's (row, column) as (t / gn, t % gn);
-// the per-tile arithmetic is the 2-D launch's, so the two results are
-// equal bit for bit.  Not built with fast math: the epilogue uses IEEE
-// tanhf and expf.
+// On every route coalesce_grid (Listing 4) launches a 1-D grid over
+// gm * gn tiles and recovers the tile's (row, column) from the flat
+// index; the per-tile arithmetic is the 2-D launch's, so the two results
+// are equal bit for bit.  Two calls are equal bit for bit too: no atomics,
+// no split K.  Not built with fast math: the epilogue uses IEEE tanhf and
+// expf.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -455,6 +502,344 @@ int dispatch_tile(int block_m, int block_n, const void* a, const void* b,
 
 }  // namespace tc
 
+namespace tf32x3 {
+
+constexpr int BK = 32;          // k per stage: a 128-byte swizzle row of float32
+constexpr int kRowBytes = 128;  // a swizzled row: 32 float32
+constexpr int kSplitThreads = 256;
+
+using repro::hopper::EncodeTiled;
+using repro::hopper::encoder;
+using repro::hopper::fence_regs;
+using repro::hopper::is_finite;
+using repro::hopper::mbar_arrive;
+using repro::hopper::mbar_expect_tx;
+using repro::hopper::mbar_init;
+using repro::hopper::mbar_wait;
+using repro::hopper::smem_desc;
+using repro::hopper::smem_u32;
+using repro::hopper::split_tf32;
+using repro::hopper::tma_load_2d;
+using repro::hopper::wgmma_commit;
+using repro::hopper::wgmma_fence;
+using repro::hopper::wgmma_wait;
+
+// The split pass.  Blocks [0, a_blocks): A2[i] = hi(A[i]) and A2[M K + i]
+// = lo(A[i]), four floats a thread.  The rest: one 32 x 32 tile of B each,
+// transposed through shared memory, B2[n][k] = hi(B[k][n]) and
+// B2[N + n][k] = lo(B[k][n]).  kSplitThreads threads.
+__global__ void __launch_bounds__(kSplitThreads)
+    split_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                 float* __restrict__ A2, float* __restrict__ B2, int M, int N,
+                 int K, int a_blocks) {
+  if (static_cast<int>(blockIdx.x) < a_blocks) {
+    const size_t mk = static_cast<size_t>(M) * K;
+    const size_t i = (static_cast<size_t>(blockIdx.x) * kSplitThreads +
+                      threadIdx.x) * 4;
+    if (i >= mk) return;  // M K % 4 == 0: whole float4s
+    const float4 v = *reinterpret_cast<const float4*>(A + i);
+    float4 hi, lo;
+    split_tf32(v.x, hi.x, lo.x);
+    split_tf32(v.y, hi.y, lo.y);
+    split_tf32(v.z, hi.z, lo.z);
+    split_tf32(v.w, hi.w, lo.w);
+    *reinterpret_cast<float4*>(A2 + i) = hi;
+    *reinterpret_cast<float4*>(A2 + mk + i) = lo;
+    return;
+  }
+  __shared__ float t[32][33];
+  const int tile = blockIdx.x - a_blocks, tiles_n = (N + 31) / 32;
+  const int k0 = (tile / tiles_n) * 32, n0 = (tile % tiles_n) * 32;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+#pragma unroll
+  for (int r = ty; r < 32; r += kSplitThreads / 32) {
+    const int k = k0 + r, n = n0 + tx;
+    t[r][tx] = (k < K && n < N) ? B[static_cast<size_t>(k) * N + n] : 0.f;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = ty; r < 32; r += kSplitThreads / 32) {
+    const int n = n0 + r, k = k0 + tx;
+    if (n >= N || k >= K) continue;
+    float hi, lo;
+    split_tf32(t[tx][r], hi, lo);
+    B2[static_cast<size_t>(n) * K + k] = hi;
+    B2[(static_cast<size_t>(N) + n) * K + k] = lo;
+  }
+}
+
+// D[64 x N] += A[64 x 8] (K-major) @ B[8 x N] (K-major), TF32; scale_d 0
+// writes D = A B.
+__device__ __forceinline__ void wgmma_m64n64k8(float (&d)[32], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da,
+                                           uint64_t db, int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_tile<64>(float (&d)[32], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  wgmma_m64n64k8(d, da, db, scale_d);
+}
+template <>
+__device__ __forceinline__ void wgmma_tile<128>(float (&d)[64], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  wgmma_m64n128k8(d, da, db, scale_d);
+}
+
+// sum_k A[m][k] B[k][n] by IEEE float32 FMAs, k in order: the epilogue's
+// value for an output whose split sum is not finite.
+__device__ __noinline__ float dot_f32(const float* __restrict__ A,
+                                      const float* __restrict__ B, int m,
+                                      int n, int N, int K) {
+  const float* a = A + static_cast<size_t>(m) * K;
+  float s = 0.f;
+  for (int k = 0; k < K; ++k)
+    s = fmaf(a[k], B[static_cast<size_t>(k) * N + n], s);
+  return s;
+}
+
+// NC consumer warpgroups (BM = 64 NC rows), then one producer warp; a
+// ring of STAGES stages, each [A_hi | A_lo] (BM x 32 float32 each) and
+// [B_hi | B_lo] (BN x 32 each, K-major), 128-byte swizzled, the ring
+// starting at the first 1024-byte boundary of dynamic shared memory.
+// tmA maps A2 (2M, K), tmB B2 (2N, K); A and B are the call's own inputs,
+// read only to recompute a non-finite output.  grid (gm, gn) or, with
+// coalesce, (gm * gn), M fastest.
+template <int NC, int BN, int STAGES, typename TO>
+__global__ void __launch_bounds__(128 * NC + 32, NC == 1 ? 2 : 1)
+    gemm_os_tf32x3_kernel(const __grid_constant__ CUtensorMap tmA,
+                          const __grid_constant__ CUtensorMap tmB,
+                          const float* __restrict__ A,
+                          const float* __restrict__ B,
+                          const float* __restrict__ bias, TO* __restrict__ C,
+                          int M, int N, int K, int act, int coalesce) {
+  constexpr int BM = 64 * NC;
+  constexpr int A_BYTES = BM * kRowBytes;  // one of A_hi, A_lo
+  constexpr int B_BYTES = BN * kRowBytes;  // one of B_hi, B_lo
+  constexpr int STAGE_BYTES = 2 * (A_BYTES + B_BYTES);
+  constexpr int kAcc = BN / 2;
+
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
+
+  int tile_m, tile_n;
+  if (coalesce) {
+    const int gm = (M + BM - 1) / BM;
+    tile_m = blockIdx.x % gm;
+    tile_n = blockIdx.x / gm;
+  } else {
+    tile_m = blockIdx.x;
+    tile_n = blockIdx.y;
+  }
+  const int m0 = tile_m * BM, n0 = tile_n * BN;
+  const int k_tiles = (K + BK - 1) / BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), 4 * NC);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * NC) {  // the producer warp: one lane issues every load
+    if (lane == 0) {
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        const int s = kt % STAGES;
+        if (kt >= STAGES)
+          mbar_wait(smem_u32(&empty[s]), ((kt / STAGES) - 1) & 1);
+        const uint32_t bar = smem_u32(&full[s]);
+        const uint32_t sa = ring + s * STAGE_BYTES, sb = sa + 2 * A_BYTES;
+        mbar_expect_tx(bar, STAGE_BYTES);
+        // Rows past M (N) of the hi box read the first lo rows: they feed
+        // only outputs past M (N), which are never stored.  Past 2M (2N)
+        // and K, TMA fills zeros.
+        tma_load_2d(sa, &tmA, kt * BK, m0, bar);
+        tma_load_2d(sa + A_BYTES, &tmA, kt * BK, M + m0, bar);
+        tma_load_2d(sb, &tmB, kt * BK, n0, bar);
+        tma_load_2d(sb + B_BYTES, &tmB, kt * BK, N + n0, bar);
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns rows m0 + 64 wg .. + 63.
+  const int wg = warp / 4;
+  float acc[kAcc], part[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = part[i] = 0.f;
+
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const int s = kt % STAGES;
+    mbar_wait(smem_u32(&full[s]), (kt / STAGES) & 1);
+    const uint32_t a_hi = ring + s * STAGE_BYTES + wg * 64 * kRowBytes;
+    const uint32_t a_lo = a_hi + A_BYTES;
+    const uint32_t b_hi = ring + s * STAGE_BYTES + 2 * A_BYTES;
+    const uint32_t b_lo = b_hi + B_BYTES;
+    fence_regs(part);
+    wgmma_fence();
+    // 8 k further is 32 bytes along both swizzled rows; the leading
+    // offset is unused (K-major, swizzled), 1024 bytes a group of 8 rows.
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk)
+      wgmma_tile<BN>(part, smem_desc(a_lo + kk * 32, 16, 1024),
+                     smem_desc(b_hi + kk * 32, 16, 1024), kk);
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk)
+      wgmma_tile<BN>(part, smem_desc(a_hi + kk * 32, 16, 1024),
+                     smem_desc(b_lo + kk * 32, 16, 1024), 1);
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk)
+      wgmma_tile<BN>(part, smem_desc(a_hi + kk * 32, 16, 1024),
+                     smem_desc(b_hi + kk * 32, 16, 1024), 1);
+    wgmma_commit();
+    fence_regs(part);
+    wgmma_wait<0>();
+    fence_regs(part);
+    if (lane == 0) mbar_arrive(smem_u32(&empty[s]));
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc[i] += part[i];
+  }
+
+  // Epilogue on the fragment: register 4 j + 2 h + e of a thread holds
+  // row (warp % 4) * 16 + lane / 4 + 8 h of its warpgroup's 64, column
+  // 8 j + 2 (lane % 4) + e.
+  const int row = m0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int n = n0 + 8 * j + 2 * (lane % 4);
+    if (n >= N) continue;  // N % 4 == 0 and n even, so n + 1 < N as well
+    const float b0 = bias ? bias[n] : 0.f, b1 = bias ? bias[n + 1] : 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = row + 8 * h;
+      if (m >= M) continue;
+      float x0 = acc[4 * j + 2 * h], x1 = acc[4 * j + 2 * h + 1];
+      if (!is_finite(x0)) x0 = dot_f32(A, B, m, n, N, K);
+      if (!is_finite(x1)) x1 = dot_f32(A, B, m, n + 1, N, K);
+      if (bias) {
+        x0 += b0;
+        x1 += b1;
+      }
+      store2(C + static_cast<size_t>(m) * N + n, activate(x0, act),
+             activate(x1, act));
+    }
+  }
+}
+
+template <int NC, int BN, int STAGES, typename TO>
+int launch(const float* a, const float* b, const float* bias, void* c,
+           float* scratch, int M, int N, int K, int act, int coalesce,
+           cudaStream_t stream) {
+  constexpr int BM = 64 * NC;
+  constexpr int smem =
+      STAGES * 2 * (BM + BN) * kRowBytes + 1024;  // + alignment
+  const EncodeTiled fn = encoder();
+  if (!fn) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
+  float* a2 = scratch;
+  float* b2 = scratch + 2 * static_cast<size_t>(M) * K;
+  const long long a_blocks =
+      (static_cast<long long>(M) * K / 4 + kSplitThreads - 1) / kSplitThreads;
+  const long long b_tiles =
+      static_cast<long long>((K + 31) / 32) * ((N + 31) / 32);
+  if (a_blocks + b_tiles > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ta, tb;
+  if (!repro::hopper::encode_2d(fn, &ta, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                                a2, 2 * M, K, BM, BK) ||
+      !repro::hopper::encode_2d(fn, &tb, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                                b2, 2 * N, K, BN, BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = gemm_os_tf32x3_kernel<NC, BN, STAGES, TO>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  split_kernel<<<static_cast<int>(a_blocks + b_tiles), kSplitThreads, 0,
+                 stream>>>(a, b, a2, b2, M, N, K, static_cast<int>(a_blocks));
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int gm = (M + BM - 1) / BM, gn = (N + BN - 1) / BN;
+  const dim3 grid = coalesce ? dim3(gm * gn) : dim3(gm, gn);
+  kernel<<<grid, 128 * NC + 32, smem, stream>>>(ta, tb, a, b, bias,
+                                                static_cast<TO*>(c), M, N, K,
+                                                act, coalesce);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// (block_m, block_n) = (128, 128): two consumer warpgroups, 3 stages of 64
+// KB (193 KB, one block an SM); (64, 64): one consumer warpgroup, 3 stages
+// of 32 KB (97 KB, two blocks an SM).
+template <typename TO>
+int dispatch_tile(int block_m, int block_n, const float* a, const float* b,
+                  const float* bias, void* c, float* scratch, int M, int N,
+                  int K, int act, int coalesce, cudaStream_t st) {
+  if (block_m == 128 && block_n == 128)
+    return launch<2, 128, 3, TO>(a, b, bias, c, scratch, M, N, K, act,
+                                 coalesce, st);
+  if (block_m == 64 && block_n == 64)
+    return launch<1, 64, 3, TO>(a, b, bias, c, scratch, M, N, K, act,
+                                coalesce, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace tf32x3
+
 bool bad_grid(int M, int N, int bm, int bn, int coalesce) {
   const long long gm = (M + bm - 1) / bm, gn = (N + bn - 1) / bn;
   return coalesce ? gm * gn > 2147483647LL : gm > 65535;
@@ -514,3 +899,41 @@ extern "C" int repro_gemm_os_tc(const void* a, const void* b,
                                             N, K, act, coalesce, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// The float32 tensor-core route: as repro_gemm_os with a and b float32, K
+// and N multiples of 4, a, b, c and scratch 16-byte aligned, the tile
+// (block_m, block_n) one of (128, 128) and (64, 64), and scratch_floats,
+// the floats at scratch, at least 2 (M + N) K (the split operands: A2 (2M,
+// K), then B2 (2N, K)).  Two launches on the stream: the split pass, then
+// the product.  Returns cudaErrorInvalidValue for anything else, and
+// cudaErrorSharedObjectSymbolNotFound when libcuda's tensor-map encoder
+// cannot be found.
+extern "C" int repro_gemm_os_tf32x3(const void* a, const void* b,
+                                    const void* bias, void* c, void* scratch,
+                                    long long scratch_floats, int M, int N,
+                                    int K, int out_dtype, int act,
+                                    int coalesce, int block_m, int block_n,
+                                    void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % 4 != 0 || N % 4 != 0 ||
+      act < kNone || act > kSilu || block_m <= 0 || block_n <= 0 ||
+      M > (1 << 30) || N > (1 << 30) || !aligned16(a) || !aligned16(b) ||
+      !aligned16(c) || !aligned16(scratch) ||
+      scratch_floats < 2LL * (static_cast<long long>(M) + N) * K ||
+      (coalesce ? bad_grid(M, N, block_m, block_n, 1)
+                : (N + block_n - 1) / block_n > 65535))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* af = static_cast<const float*>(a);
+  const float* bf = static_cast<const float*>(b);
+  const float* biasf = static_cast<const float*>(bias);
+  float* sf = static_cast<float*>(scratch);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (out_dtype == 0)
+    return tf32x3::dispatch_tile<float>(block_m, block_n, af, bf, biasf, c,
+                                        sf, M, N, K, act, coalesce, st);
+  if (out_dtype == 1)
+    return tf32x3::dispatch_tile<__nv_bfloat16>(block_m, block_n, af, bf,
+                                                biasf, c, sf, M, N, K, act,
+                                                coalesce, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+

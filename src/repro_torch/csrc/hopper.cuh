@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core routes:
 // shared-memory mbarriers, TMA tile loads, wgmma shared-memory descriptors
-// and group control and the host-side tensor-map encoder (gemm_os.cu,
-// qgemm_int8.cu); cp.async copies, ldmatrix and mma.sync bf16 products
-// (conv2d_os.cu, decode_attn.cu).
+// and group control (gemm_os.cu, qgemm_int8.cu, conv2d_os.cu) and the
+// host-side tensor-map encoder (gemm_os.cu, qgemm_int8.cu); cp.async
+// copies, ldmatrix and mma.sync bf16 products (conv2d_os.cu,
+// decode_attn.cu); the float32 -> TF32 split of the float32 tf32x3 routes
+// (gemm_os.cu, conv2d_os.cu).
 //
 // The libraries are plain nvcc output loaded with ctypes and are not
 // linked against libcuda, so cuTensorMapEncodeTiled is looked up with
@@ -94,6 +96,11 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+// float32 is finite (not an infinity or a NaN).
+__device__ __forceinline__ bool is_finite(float x) {
+  return fabsf(x) < __int_as_float(0x7f800000);
+}
+
 // Keep the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma issue and wait.
 template <int R>
@@ -148,6 +155,27 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// float32 -> TF32 (10 explicit mantissa bits), rounded to nearest with
+// ties away from zero; the low 13 bits of the result are 0, so a TF32
+// product reads it exactly (fed raw float32, the tensor cores would
+// truncate those bits instead).  |x| within 2^-12 relative of FLT_MAX
+// rounds to infinity.
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// The 3xTF32 split: x = hi + lo to 2^-22 relative, hi = tf32(x) and lo =
+// tf32(x - hi) (x - hi is exact in float32).  Where hi is not finite lo
+// is 0, so that lo never carries the NaN of inf - inf.  A product
+// a * b is then taken as a_lo b_hi + a_hi b_lo + a_hi b_hi: three TF32
+// products, the small ones first, a_lo b_lo (2^-22 relative) dropped.
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = tf32_rna(x);
+  lo = is_finite(hi) ? tf32_rna(x - hi) : 0.f;
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,
@@ -170,7 +198,8 @@ inline EncodeTiled encoder() {
 
 // A 2-D tensor map over a row-major (rows, cols) matrix of ``elem_bytes``
 // elements with boxes of box_rows x box_cols, 128-byte swizzled (box_cols
-// * elem_bytes must be 128).  Out-of-bounds parts of a box read as zeros.
+// * elem_bytes must be 128: 64 bf16, 32 float32, 128 int8).
+// Out-of-bounds parts of a box read as zeros.
 inline bool encode_2d(EncodeTiled fn, CUtensorMap* map, CUtensorMapDataType type,
                       int elem_bytes, const void* ptr, int rows, int cols,
                       int box_rows, int box_cols) {

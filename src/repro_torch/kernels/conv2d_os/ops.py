@@ -3,8 +3,8 @@ Hopper kernel on CUDA tensors, the plain PyTorch version on CPU tensors.
 
 ``conv2d_os.launches`` counts the kernel's launches, so a run can show
 that its path went through the kernel, and ``conv2d_os.launches_by_route``
-the launches of each route (``kernel.route``: ``tensor_core`` or
-``simt``).
+the launches of each route (``kernel.route``: ``tensor_core``,
+``tf32x3``, ``simt`` or ``stream``).
 """
 from __future__ import annotations
 

@@ -1,17 +1,30 @@
 """Launcher of the hand-written Hopper output-stationary GEMM
 (``csrc/gemm_os.cu``), bound with ctypes.
 
-Two routes, one C entry point each; ``route`` picks one from the shape,
-the dtype and the pointers' alignment before the launch:
+Three routes, one C entry point each; ``route`` picks one from the
+shape, the dtype and the pointers' alignment before the launch:
 
 * ``tensor_core``: bfloat16 with K and N multiples of 8 and 16-byte
   aligned pointers (TMA's terms).  wgmma fed by TMA through a ring of
   shared-memory stages; a 128 x 128 tile of C for M > 64, a 64 x 64 tile
   for M <= 64 so that a decode GEMM puts N / 64 blocks on the card.
-* ``simt``: float32 (IEEE FMAs, no TF32) and the bfloat16 shapes TMA
-  cannot take; a 128 x 128 tile, K streaming in steps of 8.
+* ``tf32x3``: float32 with K and N multiples of 4 and 16-byte aligned
+  pointers.  Each operand is split into two TF32 numbers, x = hi + lo
+  (``ref.split_tf32``), and each product taken as a_lo b_hi + a_hi b_lo +
+  a_hi b_hi on the TF32 tensor cores, which holds the 1e-4 float32 bar
+  that one TF32 product breaks.  A split pass writes [A_hi; A_lo] and
+  [B_hi^T; B_lo^T] (wgmma reads TF32 operands K-major only) into scratch
+  this wrapper allocates for the call, then the bf16 route's wgmma + TMA
+  block runs on them; 64 x 64 tiles where 128 x 128 ones would not fill
+  the card.  The scratch, 2 (M + N) K floats (``tf32x3_scratch_floats``),
+  is twice the inputs: 151 MB at llama3.2-1b's ffn_in site (M 1024, K
+  2048, N 8192), held only during the call.  A product whose inputs fit
+  on the card but whose scratch does not raises torch's out-of-memory
+  error; there is no route back to SIMT.
+* ``simt``: the rest (IEEE float32 FMAs, no TF32); a 128 x 128 tile, K
+  streaming in steps of 8.
 
-Both mask ragged M, N and K, so nothing is padded.
+All mask ragged M, N and K, so nothing is padded.
 """
 from __future__ import annotations
 
@@ -22,14 +35,17 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .. import _build
-from ..common import check_on_card
+from ..common import cdiv, check_on_card
 from .ref import ACTIVATIONS
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {act: code for code, act in enumerate(ACTIVATIONS)}
-ROUTES = ("tensor_core", "simt")
-# M up to which the tensor-core route takes the 64 x 64 tile
+ROUTES = ("tensor_core", "tf32x3", "simt")
+# M up to which the tensor-core routes take the 64 x 64 tile
 SMALL_M = 64
+# The H100's SMs: the tf32x3 route takes the 64 x 64 tile where fewer
+# 128 x 128 tiles than this would leave SMs idle
+CARD_SMS = 132
 
 
 class Route(NamedTuple):
@@ -44,12 +60,18 @@ def route(M: int, K: int, N: int, dtype: torch.dtype,
     """The route of an (M, K) @ (K, N) product of ``dtype`` inputs;
     ``aligned`` says whether every pointer is 16-byte aligned.  TMA needs
     row strides that are multiples of 16 bytes (K and N multiples of 8 in
-    bfloat16) and aligned bases; float32 stays on the SIMT kernel, whose
-    IEEE FMAs hold the 1e-4 float32 tolerance that TF32 would not."""
+    bfloat16, of 4 in float32) and aligned bases; everything else runs on
+    the SIMT kernel.  float32 goes to the tensor cores only as three TF32
+    products (``tf32x3``), which hold the 1e-4 float32 tolerance that one
+    TF32 product would not."""
     if dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0 and aligned:
         if M <= SMALL_M:
             return Route("tensor_core", 64, 64)
         return Route("tensor_core", 128, 128)
+    if dtype == torch.float32 and K % 4 == 0 and N % 4 == 0 and aligned:
+        if M <= SMALL_M or cdiv(M, 128) * cdiv(N, 128) < CARD_SMS:
+            return Route("tf32x3", 64, 64)
+        return Route("tf32x3", 128, 128)
     return Route("simt", 128, 128)
 
 
@@ -64,7 +86,17 @@ def _entries():
     tc.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     tc.restype = ctypes.c_int
-    return simt, tc
+    tf32 = lib.repro_gemm_os_tf32x3
+    tf32.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+                     + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    tf32.restype = ctypes.c_int
+    return simt, tc, tf32
+
+
+def tf32x3_scratch_floats(M: int, K: int, N: int) -> int:
+    """float32 scratch of the tf32x3 route: the split A, (2M, K), then the
+    split B transposed, (2N, K)."""
+    return 2 * (M + N) * K
 
 
 def gemm_os_cuda(a: torch.Tensor, b: torch.Tensor,
@@ -106,15 +138,21 @@ def gemm_os_cuda(a: torch.Tensor, b: torch.Tensor,
     # out comes from torch.empty, whose allocations are aligned
     r = route(M, K, N, a.dtype, all(t.data_ptr() % 16 == 0 for t in (a, b)))
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
-    simt, tc = _entries()
-    args = (a.data_ptr(), b.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(), M, N,
-            K)
+    simt, tc, tf32 = _entries()
+    ptrs = (a.data_ptr(), b.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr())
+    args = (*ptrs, M, N, K)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         if r.kind == "tensor_core":
             err = tc(*args, _DTYPES[out_dtype], _ACTS[activation],
                      int(coalesce_grid), r.block_m, r.block_n, stream)
+        elif r.kind == "tf32x3":
+            scratch = torch.empty(tf32x3_scratch_floats(M, K, N),
+                                  dtype=torch.float32, device=a.device)
+            err = tf32(*ptrs, scratch.data_ptr(), scratch.numel(), M, N, K,
+                       _DTYPES[out_dtype], _ACTS[activation],
+                       int(coalesce_grid), r.block_m, r.block_n, stream)
         else:
             err = simt(*args, _DTYPES[a.dtype], _DTYPES[out_dtype],
                        _ACTS[activation], int(coalesce_grid), stream)

@@ -3,7 +3,8 @@ CUDA tensors, the plain PyTorch version on CPU tensors.
 
 ``gemm_os.launches`` counts the kernel's launches, so a run can show that
 its path went through the kernel, and ``gemm_os.launches_by_route`` the
-launches of each route (``kernel.route``: ``tensor_core`` or ``simt``).
+launches of each route (``kernel.route``: ``tensor_core``, ``tf32x3`` or
+``simt``).
 """
 from __future__ import annotations
 

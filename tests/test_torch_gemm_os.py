@@ -22,7 +22,8 @@ from repro_torch.kernels.common import cdiv
 from repro_torch.kernels.gemm_os import kernel as kmod
 from repro_torch.kernels.gemm_os.kernel import gemm_os_cuda
 from repro_torch.kernels.gemm_os.ops import gemm_os
-from repro_torch.kernels.gemm_os.ref import gemm_ref
+from repro_torch.kernels.gemm_os.ref import (gemm_ref, matmul_tf32x3,
+                                             split_tf32)
 
 SHAPES = [(128, 128, 128), (256, 384, 128), (64, 200, 96), (8, 128, 257)]
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -154,13 +155,26 @@ def test_gemm_os_kernel_rejects(change, error, match):
     (129, 37, 255, torch.bfloat16, True, ("simt", 128, 128)),
     (1, 1, 1, torch.bfloat16, True, ("simt", 128, 128)),
     (1024, 2048, 8192, torch.bfloat16, False, ("simt", 128, 128)),
-    (1024, 2048, 8192, torch.float32, True, ("simt", 128, 128)),
-    (8, 2048, 8192, torch.float32, True, ("simt", 128, 128)),
+    (1024, 2048, 8192, torch.float32, True, ("tf32x3", 128, 128)),
+    (8, 2048, 8192, torch.float32, True, ("tf32x3", 64, 64)),
+    (256, 256, 256, torch.float32, True, ("tf32x3", 64, 64)),
+    (1200, 2048, 1408, torch.float32, True, ("tf32x3", 64, 64)),
+    (2048, 2048, 1408, torch.float32, True, ("tf32x3", 128, 128)),
+    (200, 36, 260, torch.float32, True, ("tf32x3", 64, 64)),
+    (1000, 2000, 777, torch.float32, True, ("simt", 128, 128)),
+    (1024, 2046, 8192, torch.float32, True, ("simt", 128, 128)),
+    (1024, 2048, 8190, torch.float32, True, ("simt", 128, 128)),
+    (129, 37, 255, torch.float32, True, ("simt", 128, 128)),
+    (1, 1, 1, torch.float32, True, ("simt", 128, 128)),
+    (1024, 2048, 8192, torch.float32, False, ("simt", 128, 128)),
 ])
 def test_gemm_os_route(M, K, N, dtype, aligned, want):
     """The tensor-core route takes bf16 with K and N multiples of 8 (TMA's
     16-byte row strides) and aligned pointers, with the 64 x 64 tile up
-    to M 64 and 128 x 128 above; float32 and the rest run on SIMT."""
+    to M 64 and 128 x 128 above; tf32x3 takes float32 with K and N
+    multiples of 4 (16-byte rows) and aligned pointers, with the 64 x 64
+    tile up to M 64 and wherever 128 x 128 tiles would be fewer than the
+    card's 132 SMs; the rest run on SIMT."""
     assert tuple(kmod.route(M, K, N, dtype, aligned)) == want
 
 
@@ -171,6 +185,76 @@ def test_gemm_os_tiles_fill_the_card(M, blocks):
     prefill (M 1024)."""
     r = kmod.route(M, 2048, 8192, torch.bfloat16)
     assert cdiv(M, r.block_m) * cdiv(8192, r.block_n) == blocks
+
+
+def test_gemm_os_tf32x3_tiles_fill_the_card():
+    """The kernel path's float32 row (256^3) runs 16 blocks of 64 x 64 on
+    tf32x3, not the 4 of 128 x 128 that SIMT runs; the ffn_in site in
+    float32 keeps 512 blocks of 128 x 128."""
+    for (M, K, N), blocks in (((256, 256, 256), 16),
+                              ((1024, 2048, 8192), 512)):
+        r = kmod.route(M, K, N, torch.float32)
+        assert r.kind == "tf32x3"
+        assert cdiv(M, r.block_m) * cdiv(N, r.block_n) == blocks
+
+
+def test_gemm_os_tf32x3_scratch():
+    """The wrapper's scratch for the split operands: [A_hi; A_lo] (2M, K)
+    and [B_hi^T; B_lo^T] (2N, K), in float32."""
+    assert kmod.tf32x3_scratch_floats(1024, 2048, 8192) == \
+        2 * 1024 * 2048 + 2 * 8192 * 2048
+
+
+def _tf32_bits_clear(t):
+    return bool(((t.view(torch.int32) & 0x1FFF) == 0).all())
+
+
+@pytest.mark.parametrize("scale", [1e-30, 1e-3, 1.0, 7.5, 1e20])
+def test_split_tf32_reconstructs(scale):
+    """hi and lo are TF32 numbers (low 13 bits 0) and hi + lo gives x to
+    2^-22 relative; hi is x rounded to nearest, ties away from zero, as
+    cvt.rna.tf32.f32 rounds: |x - hi| is at most half a TF32 ulp."""
+    x = torch.from_numpy(_normal((4096,), 11) * np.float32(scale))
+    hi, lo = split_tf32(x)
+    assert _tf32_bits_clear(hi) and _tf32_bits_clear(lo)
+    x64, hi64, lo64 = (t.double() for t in (x, hi, lo))
+    assert ((hi64 + lo64 - x64).abs() <= 2.0 ** -22 * x64.abs()).all()
+    assert ((x64 - hi64).abs() <= 2.0 ** -11 * x64.abs()).all()
+
+
+def test_split_tf32_rounds_ties_away_and_keeps_non_finite():
+    """Ties round away from zero (1 + 2^-11 to 1 + 2^-10, and its
+    negative); infinities and NaN keep hi = x with lo = 0, so that lo
+    never carries the NaN of inf - inf."""
+    x = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12,
+                      float("inf"), float("-inf"), float("nan"), 0.0])
+    hi, lo = split_tf32(x)
+    assert hi[:3].tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0]
+    assert lo[:3].tolist() == [-2.0 ** -11, 2.0 ** -11, 2.0 ** -12]
+    assert hi[3] == float("inf") and hi[4] == float("-inf")
+    assert torch.isnan(hi[5])
+    assert lo[3:].tolist() == [0.0] * 4
+
+
+@pytest.mark.parametrize("M,K,N", SHAPES + [(64, 2048, 96)])
+def test_matmul_tf32x3_within_table1_tol(M, K, N):
+    """Three TF32 products per term, summed in float32 per 8 k, stay
+    within the Table-I float32 tolerance (rtol and atol 1e-4) of a float64
+    product and of the JAX reference, at the reference's shapes and at
+    K 2048 with weights at 1/sqrt(K); one TF32 product does not at K 2048
+    (why the route takes three)."""
+    a = _normal((M, K), M + K)
+    b = _normal((K, N), K + N) / np.float32(np.sqrt(K))
+    got = matmul_tf32x3(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    want64 = a.astype(np.float64) @ b.astype(np.float64)
+    np.testing.assert_allclose(got, want64, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got, np.asarray(jax_ref(jnp.asarray(a),
+                                                       jnp.asarray(b))),
+                               rtol=1e-4, atol=1e-4)
+    if K == 2048:
+        one = (split_tf32(torch.from_numpy(a))[0]
+               @ split_tf32(torch.from_numpy(b))[0]).numpy()
+        assert not np.allclose(one, want64, rtol=1e-4, atol=1e-4)
 
 
 def test_gemm_os_counts_launches_by_route():

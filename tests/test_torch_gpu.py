@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.conv2d_os.kernel import MIN_TF32_CIN, conv2d_os_cuda
 from repro_torch.kernels.conv2d_os.kernel import route as conv_route
 from repro_torch.kernels.conv2d_os.ops import conv2d_os
 from repro_torch.kernels.conv2d_os.ref import conv2d_ref
@@ -739,6 +740,236 @@ def test_conv2d_os_wide_taps_matches_plain(N, H, W, KH, KW, want):
     rtol, atol = TABLE1_TOL[torch.bfloat16]
     torch.testing.assert_close(got.float(), conv2d_ref(x, w).float(),
                                rtol=rtol, atol=atol)
+
+
+# The float32 tf32x3 routes (three TF32 products per term): each held to
+# the plain version at TABLE1_TOL, and its max error against a float64
+# product to TF32X3_ERR_FACTOR times the library call's own float32 error
+# (TF32 off) on the same inputs, or times TF32X3_ERR_FLOOR where that is
+# smaller: a short sum's float32 error is a few ulps, and its max over a
+# small output is noise.
+TF32X3_ERR_FACTOR, TF32X3_ERR_FLOOR = 8, 1e-6
+
+
+@pytest.fixture
+def no_tf32():
+    """TF32 off in the library calls (torch.matmul and cuDNN), as the
+    yardsticks of the float32 routes; restored after."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def _within_library_error(got, library, want64):
+    err = (got.double() - want64).abs().max().item()
+    lib = (library.double() - want64).abs().max().item()
+    assert err <= TF32X3_ERR_FACTOR * max(lib, TF32X3_ERR_FLOOR), (err, lib)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", [None, "relu", "gelu", "silu"])
+@pytest.mark.parametrize("M,K,N", [(1024, 2048, 8192), (200, 36, 260),
+                                   (8, 2048, 1000), (129, 4100, 132),
+                                   (1000, 2000, 776), (64, 512, 384)])
+def test_gemm_os_tf32x3_matches_plain(M, K, N, act, no_tf32):
+    """The float32 tensor-core route at the ffn_in site, ragged M, K not a
+    multiple of its 32-deep stage, M <= 64 and both tiles, with every
+    epilogue and a bias: within the Table-I float32 tolerance of the plain
+    version, within the library's error of float64, two calls and the 1-D
+    tile grid bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(M + K + N)
+    a = _card(rng.normal(size=(M, K)), torch.float32)
+    b = _card(rng.normal(size=(K, N)) / np.sqrt(K), torch.float32)
+    bias = _card(rng.normal(size=(N,)), torch.float32)
+    assert gemm_route(M, K, N, torch.float32).kind == "tf32x3"
+    before = gemm_os.launches_by_route["tf32x3"]
+    got = gemm_os(a, b, bias, activation=act)
+    again = gemm_os(a, b, bias, activation=act)
+    flat = gemm_os(a, b, bias, activation=act, coalesce_grid=True)
+    torch.cuda.synchronize()
+    assert gemm_os.launches_by_route["tf32x3"] == before + 3
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    assert torch.equal(got, again) and torch.equal(got, flat)
+    rtol, atol = TABLE1_TOL[torch.float32]
+    torch.testing.assert_close(got, gemm_ref(a, b, bias, act), rtol=rtol,
+                               atol=atol)
+    if act is None:
+        _within_library_error(got, torch.matmul(a, b) + bias,
+                              a.double() @ b.double() + bias.double())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(300, 512, 200), (8, 64, 1024)])
+def test_gemm_os_tf32x3_bf16_output(M, K, N):
+    """float32 in, bf16 out: one rounding of the float32 sum, within one
+    bf16 step of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(M * N)
+    a = _card(rng.normal(size=(M, K)), torch.float32)
+    b = _card(rng.normal(size=(K, N)) / np.sqrt(K), torch.float32)
+    before = gemm_os.launches_by_route["tf32x3"]
+    got = gemm_os(a, b, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert gemm_os.launches_by_route["tf32x3"] == before + 1
+    assert got.dtype == torch.bfloat16
+    rtol, atol = TABLE1_TOL[torch.bfloat16]
+    torch.testing.assert_close(
+        got.float(), gemm_ref(a, b, out_dtype=torch.bfloat16).float(),
+        rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+def test_gemm_os_tf32x3_non_finite_inputs():
+    """An infinity and a NaN in A and B: through the split, inf x b would
+    add inf b_hi and inf b_lo (NaN where their signs differ); the kernel
+    recomputes every non-finite output in plain float32, so it gives what
+    the plain version gives, NaNs in the same places; the other outputs
+    stay within the tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(9)
+    a = _card(rng.normal(size=(200, 64)), torch.float32)
+    b = _card(rng.normal(size=(64, 136)), torch.float32)
+    a[3, 5], a[7, 0], b[9, 100] = float("inf"), float("nan"), float("-inf")
+    before = gemm_os.launches_by_route["tf32x3"]
+    got = gemm_os(a, b, torch.ones(136, device="cuda"), activation="silu")
+    torch.cuda.synchronize()
+    assert gemm_os.launches_by_route["tf32x3"] == before + 1
+    want = gemm_ref(a, b, torch.ones(136, device="cuda"), "silu")
+    assert not torch.isfinite(want).all()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
+                               equal_nan=True)
+
+
+@pytest.mark.gpu
+def test_gemm_os_simt_entry_float32():
+    """The SIMT kernel, which aligned float32 no longer reaches through the
+    rule, called on its C entry with an aligned float32 product: still
+    within the Table-I tolerance of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.gemm_os.kernel import _entries
+    rng = np.random.default_rng(4)
+    M, K, N = 300, 512, 200
+    a = _card(rng.normal(size=(M, K)), torch.float32)
+    b = _card(rng.normal(size=(K, N)) / np.sqrt(K), torch.float32)
+    assert gemm_route(M, K, N, torch.float32).kind == "tf32x3"
+    out = torch.empty((M, N), device="cuda")
+    err = _entries()[0](a.data_ptr(), b.data_ptr(), None, out.data_ptr(), M,
+                        N, K, 0, 0, 0, 0,
+                        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    rtol, atol = TABLE1_TOL[torch.float32]
+    torch.testing.assert_close(out, gemm_ref(a, b), rtol=rtol, atol=atol)
+
+
+def _library_conv(x, w):
+    """F.conv2d (cuDNN) on NHWC x and (KH, KW, Cin, Cout) w, NHWC out."""
+    import torch.nn.functional as F
+    return F.conv2d(x.permute(0, 3, 1, 2),
+                    w.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,H,W,Cin,Cout,KH,KW", [
+    (32, 66, 66, 64, 64, 3, 3),   # the batched Table-I CONV
+    (2, 21, 35, 4, 12, 1, 1),     # Cin 4, one tap
+    (2, 30, 19, 12, 36, 5, 5),    # Cin 12, ragged tiles and Cout
+    (1, 40, 40, 64, 68, 7, 7),    # a second, ragged Cout tile
+    (3, 17, 50, 20, 8, 3, 7),     # non-square taps, Cin over a chunk
+    (1, 30, 40, 8, 16, 10, 10),   # the largest taps that fit
+])
+def test_conv2d_os_tf32x3_matches_plain(N, H, W, Cin, Cout, KH, KW,
+                                        out_dtype, no_tf32):
+    """The float32 tensor-core route at taps 1, 3, 5, 7 and 10 and Cin 4
+    to 64: within the Table-I tolerance of the plain version in its
+    output dtype, within the library's error of float64 (float32 out),
+    two calls bit-equal.  Below MIN_TF32_CIN the rule gives SIMT, so
+    those cases ask the wrapper for tf32x3 by name."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(H * Cin + Cout + KW)
+    x = _card(rng.normal(size=(N, H, W, Cin)), torch.float32)
+    w = _card(rng.normal(size=(KH, KW, Cin, Cout)) / np.sqrt(KH * KW * Cin),
+              torch.float32)
+    rule = conv_route(Cin, Cout, KH, KW, torch.float32).kind
+    assert rule == ("tf32x3" if Cin >= MIN_TF32_CIN else "simt")
+    if rule == "tf32x3":
+        before = conv2d_os.launches_by_route["tf32x3"]
+        got = conv2d_os(x, w, out_dtype=out_dtype)
+        again = conv2d_os(x, w, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert conv2d_os.launches_by_route["tf32x3"] == before + 2
+    else:
+        (got, r), (again, _) = (conv2d_os_cuda(x, w, out_dtype=out_dtype,
+                                               kind="tf32x3")
+                                for _ in range(2))
+        torch.cuda.synchronize()
+        assert r.kind == "tf32x3"
+    assert got.dtype == out_dtype and \
+        got.shape == (N, H - KH + 1, W - KW + 1, Cout)
+    assert torch.equal(got, again)
+    rtol, atol = TABLE1_TOL[out_dtype]
+    torch.testing.assert_close(got.float(),
+                               conv2d_ref(x, w, out_dtype).float(),
+                               rtol=rtol, atol=atol)
+    if out_dtype == torch.float32:
+        _within_library_error(got, _library_conv(x, w),
+                              _library_conv(x.double(), w.double()))
+
+
+@pytest.mark.gpu
+def test_conv2d_os_tf32x3_non_finite_inputs():
+    """An infinity and a NaN in x and a weight of 1e38 (overflowing some
+    products): the kernel recomputes every non-finite output in plain
+    float32, so it gives what the plain version gives."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(10)
+    x = _card(rng.normal(size=(2, 20, 20, 8)), torch.float32)
+    w = _card(rng.normal(size=(3, 3, 8, 12)), torch.float32)
+    x[0, 4, 4, 1], x[1, 10, 3, 0], w[1, 1, 2, 5] = (float("inf"),
+                                                      float("nan"), 1e38)
+    got, r = conv2d_os_cuda(x, w, kind="tf32x3")   # Cin 8: SIMT by rule
+    torch.cuda.synchronize()
+    assert r.kind == "tf32x3"
+    want = conv2d_ref(x, w)
+    assert not torch.isfinite(want).all()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
+                               equal_nan=True)
+
+
+@pytest.mark.gpu
+def test_conv2d_os_simt_entry_float32():
+    """The SIMT kernel on its C entry with an aligned float32 convolution
+    that the rule now sends to tf32x3: still within the Table-I tolerance
+    of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.conv2d_os.kernel import _entries
+    rng = np.random.default_rng(6)
+    N, H, W, Cin, Cout, K = 3, 30, 30, 64, 64, 3
+    x = _card(rng.normal(size=(N, H, W, Cin)), torch.float32)
+    w = _card(rng.normal(size=(K, K, Cin, Cout)) / np.sqrt(K * K * Cin),
+              torch.float32)
+    assert conv_route(Cin, Cout, K, K, torch.float32).kind == "tf32x3"
+    out = torch.empty((N, H - K + 1, W - K + 1, Cout), device="cuda")
+    err = _entries()["simt"](x.data_ptr(), w.data_ptr(), out.data_ptr(), N,
+                             H, W, Cin, Cout, K, K, 0, 0,
+                             torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    rtol, atol = TABLE1_TOL[torch.float32]
+    torch.testing.assert_close(out, conv2d_ref(x, w), rtol=rtol, atol=atol)
 
 
 @pytest.mark.gpu
