@@ -8,10 +8,12 @@
    exists, the closest single PyTorch call (a yardstick only; the port
    never calls it): decode attention at llama3.2-1b's decode shape (and
    rows of length 0, and the GQA groups 3, 5 and 48 of llama3.2-3b,
-   llama4-maverick and granite-34b, checked), the WKV6 recurrence at
-   rwkv6-1.6b's decode and prefill shapes (prefill on the chunked route,
-   with decays near 0 and near 1 too, the step kernel it replaced timed
-   on the same inputs; both routes timed around the route's threshold),
+   llama4-maverick and granite-34b, checked; float32 reruns bit-equal),
+   the WKV6 recurrence at rwkv6-1.6b's decode and prefill shapes (decode
+   on the decode route, a rerun and the state written over state0
+   bit-equal; prefill on the chunked route, with decays near 0 and near
+   1 too; the step kernel they replaced timed on the same inputs; both
+   routes timed around the route's threshold),
    and at rwkv6-1.6b's training forward (B 2, T 256, from zeros).
    Then each at the shapes the fast kernels are not built for (ROADMAP
    C10): decode_attn at head_dims 80, 96 and 256 (float32 and bf16, G 1
@@ -48,18 +50,26 @@
    repro_torch.bench.bench_kernel_micro, on the row's own inputs against
    the plain version, times its float32 rows' kernels (gemm_os_256_torch
    on tf32x3, beside the SIMT kernel it replaced; decode_attn_torch on
-   simt) beside the library calls, drives the entry point, and checks
+   simt, one kernel a call, bit-equal on rerun, and the SIMT entry at
+   32 to 512 rows a split) beside the library calls, drives the entry
+   point, and checks
    that each kernel launched exactly as often as its rows called it, on
    the routes the rule gives them (gemm_os: 22 tensor_core, 22 tf32x3).
    Every kernel has at least two routes, chosen by its kernel.route
-   (tensor_core, tf32x3 and simt; wkv6 step and chunked); every case of
+   (tensor_core, tf32x3 and simt; wkv6 decode, step and chunked); every
+   case of
    steps 2 and 3 prints the route it ran on, from the ops' per-route
    launch counts, and fails unless it is the one the rule gives (bf16,
    and int8, at the full-size shapes on the tensor cores, float32 on
    tf32x3, conv2d_os from 12 input channels; wkv6 prefill on chunked).
    Where a case runs on a redesigned route, the kernel that route
    replaced is held and timed on the same inputs (prev_ms).
-   torch._int_mm is timed in every layout of b it accepts.
+   torch._int_mm is timed in every layout of b it accepts.  Then C16
+   (phase_c16): gemm_os float32 at M = K = N = 60000 from seeded
+   torch.randn on the card, on tf32x3 as panel products under the 2 GiB
+   scratch cap: 256 sampled entries against float64 dot products, its
+   time, panels, rate against the SIMT kernel's at ffn_in and peak
+   memory against the operands + the cap + 1 GiB.
 4. The CGRA flow (phase_cgra): compiles the ten-kernel verification set
    (six Table-I kernels at small dims, four DSL kernels) on the host with
    repro_torch.core.Toolchain, verifies each over 1024 seeds on the card
@@ -114,8 +124,8 @@
    the tensor cores once per layer in every decode step (head_dim 64 or
    128, GQA groups 4, 3, 1, 48 and 5), or once per application of
    zamba2's shared attention block (6 a step); wkv6 in every decode step
-   and every prefill (decode on the step route, each prefill on the route
-   its length gives); and neither kernel on deepseek-v3's MLA path.  Then
+   and every prefill (decode on the decode route, each prefill on the
+   route its length gives); and neither kernel on deepseek-v3's MLA path.  Then
    holds one decode step's logits, kernel-backed, against the same step
    with the plain version (for deepseek-v3: logits finite and shaped
    right, and the MLA latent caches written at rows [0, length) of each
@@ -194,7 +204,8 @@ thread's stack, stops its child processes and exits 1.
    training runs' and phase_checkpoint's rwkv6 steps'; the gemm_os and
    conv2d_os entries' f32_* fields, their float32 case on tf32x3, with
    its split of the call by kernel; path_f32_* fields on the gemm_os and
-   decode_attn entries, the kernel path's float32 rows), the card's name
+   decode_attn entries, the kernel path's float32 rows; c16_* fields on
+   the gemm_os entry), the card's name
    and power limit, and as its last line
    {"ok": true, "device": {...}}.
 
@@ -439,8 +450,8 @@ def _tf32x3_bounds_text(ms: float, bound_ms: float, bound_by: str,
 def decode_attn_bound(lengths, dtype):
     """(bound_ms, bound_by): K/V rows up to each length read once, q read,
     output written; 4 flops per (query head, cached element)."""
-    n = int(sum(lengths))
-    nbytes = (2 * HKV * n * D + 2 * B * H * D) * dtype.itemsize + 4 * B
+    n, nb = int(sum(lengths)), len(lengths)
+    nbytes = (2 * HKV * n * D + 2 * nb * H * D) * dtype.itemsize + 4 * nb
     return roofline(nbytes, 4 * H * n * D, PEAK_FLOPS[dtype])
 
 
@@ -494,25 +505,34 @@ def ran_on(op, want: str, label: str) -> str:
     return want
 
 
-def _simt_decode_attn(q, k, v, lens):
+def _simt_decode_attn(q, k, v, lens, chunk=None):
     """decode_attn on the SIMT route's C entry, whatever the rule would
     choose: in bfloat16 the kernel the tensor-core route replaced, run here
-    as the redesign's "before".  q (B, H, D), k/v (B, Hkv, S, D)."""
+    as the redesign's "before"; with ``chunk`` (rows a split) in place of
+    the split plan's.  q (B, H, D), k/v (B, Hkv, S, D)."""
+    from repro_torch.kernels.common import cdiv
     from repro_torch.kernels.decode_attn import kernel as dk
     Bq, Hq, Dq = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     G = Hq // Hkv
-    splits, chunk = dk.plan("simt", Bq, Hkv, G, S, Dq, q.dtype,
-                            dk._sm_count(q.device.index))
+    splits, planned = dk.plan("simt", Bq, Hkv, G, S, Dq, q.dtype,
+                              dk._sm_count(q.device.index))
+    if chunk is None:
+        chunk = planned
+    else:
+        splits = cdiv(S, chunk)
     out = torch.empty_like(q)
     n = Bq * Hkv * splits * G
     part = torch.empty(n * (Dq + 2), dtype=torch.float32, device=q.device)
     base = part.data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    tickets = dk._tickets(q.device, stream, Bq * Hkv * cdiv(
+        G, dk.group_tile(G, "simt")))
     err = dk._entries()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            lens.data_ptr(), out.data_ptr(), base, base + 4 * n,
-                           base + 8 * n, Bq, Hkv, G, S, Dq, splits, chunk,
-                           1.0 / (Dq ** 0.5), dk._DTYPES[q.dtype],
-                           torch.cuda.current_stream().cuda_stream)
+                           base + 8 * n, tickets.data_ptr(), Bq, Hkv, G, S,
+                           Dq, splits, chunk, 1.0 / (Dq ** 0.5),
+                           dk._DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError(f"SIMT decode_attn launch failed: CUDA error {err}")
     return out
@@ -553,6 +573,9 @@ def _decode_attn_edge_checks(card: str):
             err = _held(f"decode_attn {label} {dtype}", got, want,
                         (tol, tol))
             G = hq // hkv
+            if dtype == torch.float32:     # one launch, merged in order
+                _held(f"decode_attn {label} {dtype} rerun",
+                      decode_attn(q, k, v, lens), got, None)
             kind = ran_on(decode_attn, route(d, G, dtype),
                           f"decode_attn {label} {dtype}")
             zero = [i for i, n in enumerate(lens_list) if n == 0]
@@ -568,14 +591,22 @@ def _decode_attn_edge_checks(card: str):
             del q, k, v
 
 
+# float32 decode_attn at batch 1 over a long cache (phase_decode_attn_check):
+# its length, a whole row of KV head 8 x D 64 at llama3.2-1b's widths
+DECODE_ATTN_LONG_S = 32768
+
+
 def phase_decode_attn_check(card: str):
     """decode_attn against its plain version at the serving shapes, each
     case on the route the rule gives it (bf16 on the tensor cores, float32
-    on SIMT); in bf16 the SIMT kernel is timed on the same inputs.  Then
-    the edge cases of _decode_attn_edge_checks."""
+    on SIMT); in bf16 the SIMT kernel is timed on the same inputs, in
+    float32 (one launch merging its own splits; also every row full, and
+    one row of DECODE_ATTN_LONG_S at batch 1) the same kernel at half and
+    twice the split plan's rows a split.  Then the edge cases of
+    _decode_attn_edge_checks."""
     import torch.nn.functional as F
     from repro_torch.bench import sleep_cycles_per_ms, time_ms
-    from repro_torch.kernels.decode_attn.kernel import route
+    from repro_torch.kernels.decode_attn import kernel as dk
     from repro_torch.kernels.decode_attn.ops import decode_attn
     from repro_torch.kernels.decode_attn.ref import decode_attn_ref
 
@@ -584,17 +615,22 @@ def phase_decode_attn_check(card: str):
     decode_attn.launches_by_route.update(
         dict.fromkeys(decode_attn.launches_by_route, 0))
     for dtype in (torch.bfloat16, torch.float32):
-        for S in (S_MAX, 1000):
+        shapes = [(B, S_MAX), (B, 1000)]
+        if dtype == torch.float32:
+            shapes.append((1, DECODE_ATTN_LONG_S))
+        for nb, S in shapes:
             gen = torch.Generator(device="cuda").manual_seed(S)
-            ragged = [1, 63, 64, 65, S, S // 2, 129, S - 1]
-            cases = [("ragged", ragged)]
-            if dtype == torch.bfloat16 and S == S_MAX:
-                cases.append(("full", [S] * B))
-            kv_bytes = 2 * B * HKV * S * D * dtype.itemsize
+            cases = []
+            if nb == B:
+                cases.append(("ragged", [1, 63, 64, 65, S, S // 2, 129,
+                                         S - 1]))
+            if S != 1000:
+                cases.append(("full", [S] * nb))
+            kv_bytes = 2 * nb * HKV * S * D * dtype.itemsize
             copies = max(2, math.ceil(2 * L2_BYTES / kv_bytes))
             bufs = [tuple(torch.randn(shape, generator=gen, device="cuda")
                           .to(dtype) for shape in
-                          ((B, H, D), (B, HKV, S, D), (B, HKV, S, D)))
+                          ((nb, H, D), (nb, HKV, S, D), (nb, HKV, S, D)))
                     for _ in range(copies)]
             for label, lens_list in cases:
                 lens = torch.tensor(lens_list, dtype=torch.int32,
@@ -607,24 +643,29 @@ def phase_decode_attn_check(card: str):
                 tol = KERNEL_TOL[dtype]
                 ok = bool(torch.allclose(got.float(), want.float(),
                                          rtol=tol, atol=tol))
-                kind = ran_on(decode_attn, route(D, H // HKV, dtype),
-                              f"decode_attn {dtype} S={S} {label}")
+                kind = ran_on(decode_attn, dk.route(D, H // HKV, dtype),
+                              f"decode_attn {dtype} B={nb} S={S} {label}")
+                if dtype == torch.float32:   # one launch, merged in order
+                    _held(f"decode_attn {dtype} B={nb} S={S} {label} rerun",
+                          decode_attn(q, k, v, lens), got, None)
+                    ran_on(decode_attn, kind, f"decode_attn {dtype} B={nb} "
+                                              f"S={S} {label} rerun")
                 mask = (torch.arange(S, device="cuda")[None, :]
                         < lens[:, None])[:, None, None, :]
 
                 def library(q, k, v):
                     return F.scaled_dot_product_attention(
-                        q.view(B, H, 1, D), k, v, attn_mask=mask,
+                        q.view(nb, H, 1, D), k, v, attn_mask=mask,
                         enable_gqa=True)
 
                 if not ok:
                     raise AssertionError(
                         f"decode_attn disagrees with its plain version: "
-                        f"{dtype} S={S} max_abs_err {err}")
+                        f"{dtype} B={nb} S={S} max_abs_err {err}")
                 ms, host_ms = time_ms([lambda b=b: decode_attn(*b, lens)
                                        for b in bufs], 200, cyc)
-                ran_on(decode_attn, kind, f"decode_attn {dtype} S={S} "
-                                          f"{label} timed")
+                ran_on(decode_attn, kind, f"decode_attn {dtype} B={nb} "
+                                          f"S={S} {label} timed")
                 plain_ms, _ = time_ms([lambda b=b: decode_attn_ref(*b, lens)
                                        for b in bufs], 20, cyc)
                 library_ms, _ = time_ms([lambda b=b: library(*b)
@@ -637,8 +678,23 @@ def phase_decode_attn_check(card: str):
                     prev_ms, _ = time_ms([lambda b=b: _simt_decode_attn(
                         *b, lens) for b in bufs], 200, cyc)
                     prev = f", SIMT route {prev_ms:.5f} ms"
+                else:   # the split plan's rows a split, halved and doubled
+                    chunk = dk.plan(kind, nb, HKV, H // HKV, S, D, dtype,
+                                    dk._sm_count(0))[1]
+                    times = []
+                    for rows in (chunk // 2, 2 * chunk):
+                        _held(f"decode_attn {dtype} B={nb} S={S} {label} "
+                              f"at {rows} rows a split",
+                              _simt_decode_attn(q, k, v, lens, chunk=rows),
+                              want, (tol, tol))
+                        rows_ms, _ = time_ms(
+                            [lambda b=b, r=rows: _simt_decode_attn(
+                                *b, lens, chunk=r) for b in bufs], 200, cyc)
+                        times.append(f"{rows} rows {rows_ms:.5f} ms")
+                    prev = (f" at the plan's {chunk} rows a split ("
+                            f"{', '.join(times)})")
                 bound_ms, bound_by = decode_attn_bound(lens_list, dtype)
-                print(f"[decode_attn] {str(dtype)[6:]} S={S} lengths "
+                print(f"[decode_attn] {str(dtype)[6:]} B={nb} S={S} lengths "
                       f"{label} {lens_list} on the {kind} route: "
                       f"max_abs_err {err:.3e} (tol {tol}) kernel {ms:.5f} ms "
                       f"(host {host_ms:.5f} ms per call){prev}, plain "
@@ -646,7 +702,7 @@ def phase_decode_attn_check(card: str):
                       f"({ms / library_ms:.2f}x), bound {bound_ms:.5f} ms "
                       f"({bound_by}), {100 * bound_ms / ms:.1f}% of bound "
                       f"[{card}]")
-                if label == "full":
+                if label == "full" and dtype == torch.bfloat16:
                     entry = dict(
                         name="decode_attn", route="cuda", kernel_route=kind,
                         source="src/repro_torch/csrc/decode_attn.cu",
@@ -662,22 +718,26 @@ def phase_decode_attn_check(card: str):
     return entry
 
 
-def _wkv6_entry(kind, r, k, v, w, u, s0=None):
+def _wkv6_entry(kind, r, k, v, w, u, s0=None, state=None):
     """wkv6 on the ``kind`` route's C entry, whatever the rule would
-    choose: at prefill the step kernel is the one the chunked route
-    replaced, run here as the redesign's "before".  Not counted as a
-    launch of the path.  Returns (out, state)."""
+    choose: at prefill and at decode the step kernel is the one the
+    chunked and the decode routes replaced, run here as the redesigns'
+    "before".  The new state goes to ``state`` (which may be ``s0``
+    itself), else to a new tensor.  Not counted as a launch of the path.
+    Returns (out, state)."""
     from repro_torch.kernels.wkv6 import kernel as wk
     nb, T, nh, d = r.shape
     out = torch.empty_like(r)
-    state = torch.empty((nb, nh, d, d), dtype=torch.float32, device="cuda")
+    if state is None:
+        state = torch.empty((nb, nh, d, d), dtype=torch.float32,
+                            device="cuda")
     args = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), None if s0 is None else s0.data_ptr(),
             out.data_ptr(), state.data_ptr())
     stream = torch.cuda.current_stream().cuda_stream
-    if kind == "step":
-        err = wk._entries()["step"](*args, nb, T, nh, d,
-                                    wk._DTYPES[r.dtype], stream)
+    if kind in ("decode", "step"):
+        err = wk._entries()[kind](*args, nb, T, nh, d, wk._DTYPES[r.dtype],
+                                  stream)
     else:
         scratch, ptrs = wk._chunked_scratch(nb, T, nh, d, r.device)
         err = wk._entries()["chunked"](*args, *ptrs, nb, T, nh, d,
@@ -691,14 +751,16 @@ def _wkv6_entry(kind, r, k, v, w, u, s0=None):
 def phase_wkv6_check(card: str):
     """wkv6 against its plain version at rwkv6-1.6b's serving shapes, each
     case on the route the rule gives it: the decode step (B=8, T=1) from a
-    nonzero state on the step route, and batch-1 prefills from zeros on
-    the chunked route, whole and in two halves with the carried state,
-    with decays as the model draws them and near 0 and near 1; and the
-    training forward's shape (WKV6_TRAIN, from zeros) on the chunked
-    route.  At prefill and training the step kernel is held and timed on
-    the same inputs.  Then both routes at batch-1 prompts on either side
-    of the threshold.  Returns the decode, the prefill and the training
-    entries of the kernels line (the training entry with path "train")."""
+    nonzero state on the decode route (a second call bit-equal, and its C
+    entry with the new state written over state0 equal to it), and
+    batch-1 prefills from zeros on the chunked route, whole and in two
+    halves with the carried state, with decays as the model draws them
+    and near 0 and near 1; and the training forward's shape (WKV6_TRAIN,
+    from zeros) on the chunked route.  At decode, prefill and training
+    the step kernel is held and timed on the same inputs.  Then both
+    routes at batch-1 prompts on either side of the threshold.  Returns
+    the decode, the prefill and the training entries of the kernels line
+    (the training entry with path "train")."""
     from repro_torch.bench import sleep_cycles_per_ms, time_ms
     from repro_torch.kernels.wkv6.kernel import CHUNK_T, route
     from repro_torch.kernels.wkv6.ops import wkv6
@@ -752,6 +814,22 @@ def phase_wkv6_check(card: str):
             s_err = _held(f"wkv6 {dtype} B={nb} T={T} {decays} state",
                           got[1], want[1], (WKV6_STATE_TOL,) * 2)
             label += f", plain in {str(wide)[6:]}"
+            if kind == "decode":   # a rerun, and the state written in place
+                again = wkv6(*bufs[0])
+                in_place = bufs[0][5].clone()
+                alias = _wkv6_entry("decode", *bufs[0][:5], in_place,
+                                    in_place)
+                torch.cuda.synchronize()
+                ran_on(wkv6, kind, f"wkv6 {dtype} decode rerun")
+                _held(f"wkv6 {dtype} decode rerun", again[0], got[0], None)
+                _held(f"wkv6 {dtype} decode rerun state", again[1], got[1],
+                      None)
+                _held(f"wkv6 {dtype} decode, state_out = state0",
+                      alias[0], got[0], None)
+                _held(f"wkv6 {dtype} decode, state_out = state0 (state)",
+                      in_place, got[1], None)
+                label += ", a rerun and the state written over state0 " \
+                    "bit-equal"
             if T > 1 and decays == "mid":  # two halves, the carried state
                 r, k, v, w, u, _ = bufs[0]
                 half = T // 2
@@ -781,12 +859,13 @@ def phase_wkv6_check(card: str):
             # are drawn.  Near 1 its float32 sum of a thousand steps is as
             # far from the exact value as the plain version's (1.5e-4 of
             # outputs near 200); the near cases check the chunked route.
-            if kind == "chunked" and decays == "mid":
+            if kind in ("chunked", "decode") and decays == "mid":
                 _held(f"wkv6 {dtype} T={T} {decays} on the step entry",
                       _wkv6_entry("step", *bufs[0])[0], want[0],
                       (rtol, atol))
                 prev_ms, _ = time_ms([lambda b=b: _wkv6_entry("step", *b)
-                                      for b in bufs], 20, cyc)
+                                      for b in bufs], 200 if T == 1 else 20,
+                                     cyc)
                 timing += f", step route {prev_ms:.5f} ms " \
                     f"({prev_ms / ms:.2f}x the kernel)"
             plain_ms = None
@@ -795,7 +874,7 @@ def phase_wkv6_check(card: str):
                                        for b in bufs], 20 if T == 1 else 2,
                                       cyc)
                 timing += f", plain {plain_ms:.5f} ms"
-            if kind == "chunked" and decays == "mid":
+            if kind in ("chunked", "decode") and decays == "mid":
                 timing += f"; by kernel {_device_ms_by_kernel(wkv6, bufs)}"
                 ran_on(wkv6, kind, f"wkv6 {dtype} B={nb} T={T} profiled")
             bound_ms, bound_by = wkv6_bound(nb, T, H, D, dtype, with_state0)
@@ -1350,6 +1429,39 @@ def _conv_fill_sweep(card: str) -> None:
         del x, w, want
 
 
+# Rows a split of the float32 vector kernel, timed on the kernel path's
+# float32 decode_attn row (the plan's: one trip of 64)
+DECODE_ATTN_F32_CHUNKS = (32, 64, 128, 192, 256, 512)
+
+
+def _decode_attn_one_launch(name: str, kernel, args, cyc: float,
+                            card: str) -> None:
+    """A float32 decode_attn call at a head_dim in HEAD_DIMS is one kernel
+    (the SIMT vector kernel merging its own splits): the device's kernels
+    of ten calls by name, one name; a rerun bit-equal.  Then the SIMT
+    entry on the same inputs at DECODE_ATTN_F32_CHUNKS rows a split, each
+    held to the plain version and timed (the split plan's choice)."""
+    from repro_torch.bench import time_ms
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+    by_name = _device_ms_by_name(kernel, [args])
+    if len(by_name) != 1 or "decode_split_kernel" not in by_name:
+        raise AssertionError(f"{name}: a float32 call launched {by_name}, "
+                             f"not one decode_split_kernel")
+    _held(f"{name} rerun", kernel(*args), kernel(*args), None)
+    want = decode_attn_ref(*args)
+    tol = KERNEL_TOL[torch.float32]
+    times = []
+    for chunk in DECODE_ATTN_F32_CHUNKS:
+        _held(f"{name} at {chunk} rows a split",
+              _simt_decode_attn(*args, chunk=chunk), want, (tol, tol))
+        ms, _ = time_ms([lambda c=chunk: _simt_decode_attn(*args, chunk=c)],
+                        200, cyc)
+        times.append(f"{chunk} rows {ms:.5f} ms")
+    print(f"[bench] {name}: one kernel a call "
+          f"({_device_ms_by_kernel(kernel, [args])}), a rerun bit-equal; "
+          f"the SIMT entry by rows a split: {', '.join(times)} [{card}]")
+
+
 def _path_f32_row(name: str, op: str, args, route: str, cyc: float,
                   card: str) -> dict:
     """A float32 row of the kernel path, timed on its own inputs: its
@@ -1391,6 +1503,7 @@ def _path_f32_row(name: str, op: str, args, route: str, cyc: float,
                                       PEAK_FLOPS[torch.float32])
         design_ms = None
         library = "scaled_dot_product_attention"
+        _decode_attn_one_launch(name, kernel, args, cyc, card)
     before = "" if prev_ms is None else \
         f", SIMT route {prev_ms:.5f} ms ({prev_ms / ms:.2f}x the kernel)"
     bounds = (f"bound {bound_ms:.6f} ms ({bound_by})" if design_ms is None
@@ -1799,6 +1912,99 @@ def phase_table1_kernels(card: str, prior: list):
                         for r, c in by_route[e["name"]].items()}}
 
 
+# ROADMAP C16: a float32 product whose tf32x3 scratch, uncapped, would
+# not fit beside its inputs and output on the 80 GB card (43.2 GB of
+# operands, 57.6 GB of split operands); checked at C16_SAMPLES entries
+C16_SHAPE = (60000, 60000, 60000)
+C16_SAMPLES = 256
+FFN_IN = (1024, 2048, 8192)
+
+
+def phase_c16(card: str, entries: list) -> None:
+    """C16: gemm_os in float32 at C16_SHAPE from seeded torch.randn on the
+    card runs on tf32x3 as panel products under the scratch cap
+    (kernel.tf32x3_panels), one call, timed with CUDA events:
+    C16_SAMPLES entries held to float64 dot products at the route's bar,
+    TF32X3_ERR_FACTOR times the library's float32 error on the same
+    entries (torch.matmul of the sampled rows and columns, TF32 off: at K
+    60000 either sum's error is absolute, about 1e-3, whatever the
+    entry's size); the peak memory of the call under inputs + output +
+    TF32X3_SCRATCH_BYTES + 1 GiB; its rate (2MNK over the time) above
+    the SIMT kernel's at the ffn_in site, timed here; ffn_in itself one
+    panel on its 128 x 128 tile.  Adds c16_* fields to the gemm_os entry."""
+    from repro_torch.bench import sleep_cycles_per_ms, time_ms
+    from repro_torch.kernels.gemm_os.kernel import (TF32X3_SCRATCH_BYTES,
+                                                    route, tf32x3_panels)
+    from repro_torch.kernels.gemm_os.ops import gemm_os
+
+    M, K, N = C16_SHAPE
+    r = route(M, K, N, torch.float32)
+    f = route(*FFN_IN, torch.float32)
+    if r.kind != "tf32x3" or tuple(f) != ("tf32x3", 128, 128) or \
+            len(tf32x3_panels(*FFN_IN, f.block_m, f.block_n)) != 1:
+        raise AssertionError(f"C16 {C16_SHAPE} on {r}, ffn_in on {f}: not "
+                             f"tf32x3 panels, ffn_in one panel of 128 x 128")
+    panels = tf32x3_panels(M, K, N, r.block_m, r.block_n)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    a = torch.randn((M, K), generator=gen, device="cuda")
+    b = torch.randn((K, N), generator=gen, device="cuda")
+    operands_gib = 4 * (M * K + K * N + M * N) / 2 ** 30
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(gemm_os)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    c = gemm_os(a, b)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    ran_on(gemm_os, "tf32x3", f"gemm_os float32 {C16_SHAPE}")
+    rows = torch.randint(0, M, (C16_SAMPLES,), generator=gen, device="cuda")
+    cols = torch.randint(0, N, (C16_SAMPLES,), generator=gen, device="cuda")
+    a_rows, b_cols = a[rows], b[:, cols].contiguous()
+    want = (a_rows.double() * b_cols.t().double()).sum(1)
+    library = torch.matmul(a_rows, b_cols).diagonal()
+    got = c[rows, cols]
+    finite = bool(torch.isfinite(c[rows]).all())
+    del a, b, c, a_rows, b_cols
+    torch.cuda.empty_cache()
+    tflops = 2 * M * N * K / (ms * 1e-3) / 1e12
+    limit_gib = operands_gib + TF32X3_SCRATCH_BYTES / 2 ** 30 + 1
+    err = (got.double() - want).abs().max().item()
+    lib_err = (library.double() - want).abs().max().item()
+    cyc = sleep_cycles_per_ms()
+    fa = torch.randn(FFN_IN[:2], generator=gen, device="cuda")
+    fb = torch.randn(FFN_IN[1:], generator=gen, device="cuda")
+    simt_ms, _ = time_ms([lambda: _simt_gemm(fa, fb)], 20, cyc)
+    simt_tflops = 2 * math.prod(FFN_IN) / (simt_ms * 1e-3) / 1e12
+    del fa, fb
+    print(f"[c16] gemm_os float32 M=K=N={M} on the {r.kind} route "
+          f"({r.block_m} x {r.block_n}): {len(panels)} panel products of "
+          f"up to {panels[0].m} x {panels[0].n} "
+          f"({sum(p.split_a for p in panels)} A and "
+          f"{sum(p.split_b for p in panels)} B panel splits), "
+          f"{ms:.1f} ms, {tflops:.1f} TFLOP/s (SIMT at ffn_in "
+          f"{simt_tflops:.1f}: {simt_ms:.5f} ms); peak {peak_gib:.2f} GiB "
+          f"(operands {operands_gib:.2f} + cap "
+          f"{TF32X3_SCRATCH_BYTES / 2 ** 30:.2f} + 1 = {limit_gib:.2f}); "
+          f"{C16_SAMPLES} sampled entries max_abs_err {err:.3e} against "
+          f"float64 (torch.matmul float32 on them {lib_err:.3e}: "
+          f"{err / lib_err:.2f}x, bar {TF32X3_ERR_FACTOR}x), their rows "
+          f"finite {finite}; ffn_in one panel [{card}]")
+    _tf32x3_error(f"gemm_os {C16_SHAPE} sampled entries", got, library,
+                  want)
+    if peak_gib > limit_gib or tflops <= simt_tflops or not finite:
+        raise AssertionError(f"C16: peak {peak_gib:.2f} GiB (limit "
+                             f"{limit_gib:.2f}), {tflops:.1f} TFLOP/s (SIMT "
+                             f"{simt_tflops:.1f}), rows finite {finite}")
+    next(e for e in entries if e["name"] == "gemm_os").update(
+        c16_shape=f"M=K=N={M} float32", c16_ms=ms, c16_panels=len(panels),
+        c16_peak_gib=peak_gib, c16_tflops=tflops, c16_max_abs_err=err,
+        c16_library_err=lib_err, c16_simt_ffn_in_tflops=simt_tflops)
+
+
 def _serve_spec(cfg):
     """(kernel op or None, module whose attribute names it, plain version,
     launches per decode step, launches per admitted prompt, a part of the
@@ -1922,12 +2128,12 @@ def phase_serve(card: str, arch: str, n_layers=None):
         how = "decode_attn and wkv6 both 0"
     elif op is decode_attn:     # bf16, every D and G: the tensor cores
         how += f", {ran_on(decode_attn, 'tensor_core', name)} route"
-    else:     # decode steps on the step route, each prefill by its length
+    else:     # decode steps on the decode route, prefills by their length
         from repro_torch.kernels.wkv6.kernel import route as wkv6_route
         by_route = dict(wkv6.launches_by_route)
         hd = cfg.d_model // cfg.n_heads
         want_by_route = dict.fromkeys(by_route, 0)
-        want_by_route["step"] += per_step * steps
+        want_by_route[wkv6_route(1, 1, cfg.n_heads, hd)] += per_step * steps
         for r in reqs:
             want_by_route[wkv6_route(1, len(r.prompt), cfg.n_heads,
                                      hd)] += per_prompt
@@ -4000,6 +4206,10 @@ def main() -> int:
         table1, launches = phase_table1_kernels(card, entries)
         entries += table1
         lap("Table-I kernels and the kernel path")
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_c16(card, entries)
+        lap("phase_c16")
         cgra = start_cgra_process(tmp)
         _add_counts(launches, phase_serve_cgra(card))
         gc.collect()

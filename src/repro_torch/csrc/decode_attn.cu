@@ -20,7 +20,10 @@
 //   * At decode shapes B * Hkv is a few dozen (batch, kv-head) pairs
 //     against 132 SMs, so the S axis is split across blocks (the TPU ran
 //     it as a sequential grid axis).  Each split writes a partial (max,
-//     denominator, sum) in float32; a second small kernel merges them.
+//     denominator, sum) in float32, merged in split order: by a second
+//     small kernel (decode_merge_kernel) on the tensor-core route and the
+//     any-D SIMT kernel, and inside the same launch by the last split
+//     block of each group on the SIMT vector kernel (below).
 //   * Any group G is taken.  A block serves one tile of GT query heads,
 //     GT the smallest instantiated tile (1, 2, 4, 8; 16 on the tensor
 //     cores) that holds G, or the largest; a grid axis runs over the
@@ -60,6 +63,21 @@
 //   * Each thread group keeps kKeys rows in flight per step and rescales
 //     its running sums once per step rather than once per row; the
 //     groups of a block merge through shared memory.
+//   * One launch (decode_split_kernel).  At the kernel path's float32 row
+//     (B 2, 2 KV heads, G 4, S 512, D 64: 0.84 MB of K/V for lengths 512
+//     and 300, 0.25 us at the HBM rate) the two launches of split and
+//     merge, and the partials' round trip between them, were the 8.7 us
+//     the call took.  Now a group (b, KV head, tile) with one split
+//     writes its output from the block; with more, each split block
+//     writes its partial, fences it and draws a ticket of its group
+//     (atomicAdd on a counter the wrapper keeps zeroed, one buffer per
+//     device and stream), and the block that draws the last ticket reads
+//     the group's partials back through L2, merges them in split order
+//     (so a rerun is bit-equal, whichever block ended last) and sets the
+//     counter back to 0.  A row of length 0 has no split with rows, so
+//     split 0 writes its mean of V.  In float32 a split is at least two
+//     trips (64 rows at D 64; kernel.py: split_plan): the row's 512
+//     positions are 8 splits, not 16 of one trip each.
 //   * That kernel is instantiated for D 16, 32, 64 and 128.  Every other
 //     head_dim D >= 1 runs on decode_split_any_kernel: a warp takes one
 //     row at a time, its lanes striding over D for the score (the tail
@@ -77,7 +95,7 @@
 namespace {
 
 constexpr int kThreads = 128;  // threads of a split block
-constexpr int kKeys = 4;       // rows each thread group holds in flight
+constexpr int kKeys = 4;       // rows a thread group scores at once
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -122,19 +140,93 @@ __host__ __device__ constexpr int group_tile(int G, int max_tile) {
   return t;
 }
 
-// grid (splits, Hkv * tiles, B).  Block (split, h * tiles + tile, b)
-// covers cache positions [split * chunk, min((split + 1) * chunk, len_b))
-// for query heads tile * GT .. tile * GT + GT - 1 of KV head h (those
-// below G).  Threads form groups of TPK = D / VEC; a group reads one row
-// with one vector load per thread.  Scores are kept in base 2 (q is
-// pre-scaled by scale * log2(e)).
+// Each of the G heads of KV head bh = b * Hkv + h (those from g0, gn of
+// them) gets the mean of the head's V over all S rows, summed in float32
+// (neighbouring threads take neighbouring d): a row of length 0, whose
+// logits are all masked, so the reference's softmax is uniform.
+template <typename T>
+__device__ void mean_of_v(const T* __restrict__ v, T* __restrict__ out,
+                          size_t bh, int G, int g0, int gn, int D, int S) {
+  const T* vb = v + bh * S * D;
+  for (int t = threadIdx.x; t < gn * D; t += blockDim.x) {
+    const int d = t % D;
+    float sum = 0.f;
+    for (int s = 0; s < S; ++s)
+      sum += repro::to_float(vb[static_cast<size_t>(s) * D + d]);
+    out[(bh * G + g0) * D + t] = Vec<T>::store(sum / S);
+  }
+}
+
+// The merge of one (b, KV head, tile) group's `used` split partials
+// (part0: the group's first split; heads g0 .. g0 + gn - 1 of G): for
+// each head and d, the partials of splits 0 .. used - 1 in that order,
+// whatever order their blocks ended in, so a rerun is bit-equal.  The
+// partials were written by other blocks of the same launch: read through
+// L2 (ld.cg), kMergeBatch splits' loads in flight at a time, each batch
+// folded into the running (max, denominator, sum) after its loads land
+// (one round trip for up to kMergeBatch splits).
+constexpr int kMergeBatch = 8;
+
+template <typename T>
+__device__ void merge_splits(const float* part_m, const float* part_l,
+                             const float* part_acc, T* __restrict__ out,
+                             size_t part0, size_t out0, int used, int G,
+                             int g0, int gn, int D) {
+  for (int t = threadIdx.x; t < gn * D; t += blockDim.x) {
+    const int g = g0 + t / D, d = t % D;
+    float mx = kNeg, tot = 0.f, o = 0.f;
+    for (int s0 = 0; s0 < used; s0 += kMergeBatch) {
+      float pm[kMergeBatch], pl[kMergeBatch], pa[kMergeBatch];
+#pragma unroll
+      for (int i = 0; i < kMergeBatch; ++i) {
+        const size_t p = (part0 + s0 + i) * G + g;
+        const bool in = s0 + i < used;
+        pm[i] = in ? __ldcg(part_m + p) : kNeg;
+        pl[i] = in ? __ldcg(part_l + p) : 0.f;
+        pa[i] = in ? __ldcg(part_acc + p * D + d) : 0.f;
+      }
+      float bm = mx;
+#pragma unroll
+      for (int i = 0; i < kMergeBatch; ++i) bm = fmaxf(bm, pm[i]);
+      const float sc = exp2f(mx - bm);
+      tot *= sc;
+      o *= sc;
+#pragma unroll
+      for (int i = 0; i < kMergeBatch; ++i) {
+        if (s0 + i < used) {
+          const float w = exp2f(pm[i] - bm);
+          tot += pl[i] * w;
+          o += pa[i] * w;
+        }
+      }
+      mx = bm;
+    }
+    out[out0 + t] = Vec<T>::store(o / fmaxf(tot, 1e-30f));
+  }
+}
+
+// grid (splits, Hkv * tiles, B), one launch: the splits and their merge.
+// Block (split, h * tiles + tile, b) covers cache positions [split *
+// chunk, min((split + 1) * chunk, len_b)) for query heads tile * GT ..
+// tile * GT + GT - 1 of KV head h (those below G); the splits that hold
+// rows are 0 .. used - 1, used = min(splits, ceil(len_b / chunk)).
+// Threads form groups of TPK = D / VEC; a group reads one row with one
+// vector load per thread, kKeys rows a trip.  Scores are kept in base 2
+// (q is pre-scaled by scale * log2(e)).  A group with one split writes
+// its output directly.  With more, each split block writes its partial
+// (max, denominator, sum), fences it (__threadfence) and takes a ticket
+// of its group (tickets[blockIdx.z * gridDim.y + blockIdx.y],
+// atomicAdd); the block that draws the last ticket merges the group's
+// partials (merge_splits) and sets the ticket back to 0, so the buffer
+// is all zeros between launches.  A row of length 0 has no split with
+// rows: split 0 writes the mean of V (mean_of_v).
 template <typename T, int D, int GT>
 __global__ void __launch_bounds__(kThreads)
     decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
-                        const int* __restrict__ lengths,
-                        float* __restrict__ part_m, float* __restrict__ part_l,
-                        float* __restrict__ part_acc, int Hkv, int G,
+                        const int* __restrict__ lengths, T* __restrict__ out,
+                        float* part_m, float* part_l, float* part_acc,
+                        unsigned* __restrict__ tickets, int Hkv, int G,
                         int tiles, int S, int chunk, float scale_log2) {
   constexpr int VEC = Vec<T>::N;
   constexpr int TPK = D / VEC;
@@ -145,14 +237,19 @@ __global__ void __launch_bounds__(kThreads)
   const int h = blockIdx.y / tiles, g0 = (blockIdx.y % tiles) * GT;
   const int gn = min(GT, G - g0);  // the tile's heads below G
   const int len = min(max(lengths[b], 0), S);
+  const int used = min(static_cast<int>(gridDim.x), (len + chunk - 1) / chunk);
+  const size_t bh = static_cast<size_t>(b) * Hkv + h;
+  if (used == 0) {
+    if (split == 0) mean_of_v(v, out, bh, G, g0, gn, D, S);
+    return;
+  }
   const int start = split * chunk;
-  if (start >= len) return;  // the merge reads only splits that hold rows
+  if (start >= len) return;  // no rows: not one of the group's used splits
   const int end = min(start + chunk, len);
 
   const int grp = threadIdx.x / TPK;
   const int lane = threadIdx.x % TPK;
   const int d0 = lane * VEC;
-  const size_t bh = static_cast<size_t>(b) * Hkv + h;
   const T* kb = k + bh * S * D + d0;
   const T* vb = v + bh * S * D + d0;
 
@@ -168,6 +265,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < VEC; ++i) qr[g][i] *= scale_log2;
   }
+
   float m[GT], l[GT], acc[GT][VEC];
 #pragma unroll
   for (int g = 0; g < GT; ++g) {
@@ -231,6 +329,8 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float sm_m[NG][GT];
   __shared__ float sm_l[NG][GT];
   __shared__ float sm_acc[NG][GT][D];
+  __shared__ float sm_tot[GT];
+  __shared__ bool sm_last;
   if (lane == 0) {
 #pragma unroll
     for (int g = 0; g < GT; ++g) {
@@ -247,30 +347,59 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < VEC; ++i) sm_acc[grp][g][d0 + i] = acc[g][i] * sc;
   }
-  __syncthreads();
   // Partials of head g0 + g of this split: (B, Hkv, splits, G) order.
-  const size_t part = (bh * gridDim.x + split) * G + g0;
-  for (int t = threadIdx.x; t < gn * D; t += kThreads) {
-    const int g = t / D, d = t % D;
-    float sum = 0.f;
-    for (int j = 0; j < NG; ++j) sum += sm_acc[j][g][d];
-    part_acc[(part + g) * D + d] = sum;
-  }
+  const size_t part0 = bh * gridDim.x;
+  const size_t part = (part0 + split) * G + g0;
   if (threadIdx.x < gn) {
     const int g = threadIdx.x;
     float mx = kNeg;
     for (int j = 0; j < NG; ++j) mx = fmaxf(mx, sm_m[j][g]);
     float tot = 0.f;
     for (int j = 0; j < NG; ++j) tot += sm_l[j][g] * exp2f(sm_m[j][g] - mx);
-    part_m[part + g] = mx;
-    part_l[part + g] = tot;
+    sm_tot[g] = tot;
+    if (used > 1) {
+      part_m[part + g] = mx;
+      part_l[part + g] = tot;
+    }
   }
+  __syncthreads();
+  // One split: the output itself (what merging one partial gives: its
+  // weight exp2(m - m) is 1).
+  const size_t out0 = (bh * G + g0) * D;
+  for (int t = threadIdx.x; t < gn * D; t += kThreads) {
+    const int g = t / D, d = t % D;
+    float sum = 0.f;
+    for (int j = 0; j < NG; ++j) sum += sm_acc[j][g][d];
+    if (used == 1)
+      out[out0 + t] = Vec<T>::store(sum / fmaxf(sm_tot[g], 1e-30f));
+    else
+      part_acc[(part + g) * D + d] = sum;
+  }
+  if (used == 1) return;
+
+  // The partial is out: once every thread's stores are, one thread
+  // fences them at the device's scope (cumulative over the barrier) and
+  // draws the group's ticket.
+  __syncthreads();
+  unsigned* ticket = tickets + static_cast<size_t>(b) * gridDim.y + blockIdx.y;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    sm_last = atomicAdd(ticket, 1u) == static_cast<unsigned>(used - 1);
+    if (sm_last) __threadfence();
+  }
+  __syncthreads();
+  if (!sm_last) return;
+  merge_splits(part_m, part_l, part_acc, out, part0, out0, used, G, g0, gn,
+               D);
+  if (threadIdx.x == 0) *ticket = 0u;
 }
 
-// grid (B * Hkv).  Merges the splits that hold rows.  A row of length 0
-// has none: every logit is masked, the reference's softmax is uniform, and
-// each of its G heads gets the mean of the KV head's V over all S rows,
-// summed in float32 (coalesced: neighbouring threads take neighbouring d).
+// grid (B * Hkv).  Merges the splits that hold rows: the second launch of
+// the tensor-core route and of the any-D SIMT kernel (the vector SIMT
+// kernel merges in its own launch).  A row of length 0 has none: every
+// logit is masked, the reference's softmax is uniform, and each of its G
+// heads gets the mean of the KV head's V over all S rows, summed in
+// float32 (coalesced: neighbouring threads take neighbouring d).
 template <typename T>
 __global__ void decode_merge_kernel(const float* __restrict__ part_m,
                                     const float* __restrict__ part_l,
@@ -284,14 +413,7 @@ __global__ void decode_merge_kernel(const float* __restrict__ part_m,
   const int used = min(splits, (len + chunk - 1) / chunk);
   const size_t part0 = static_cast<size_t>(bh) * splits;
   if (used == 0) {
-    const T* vb = v + static_cast<size_t>(bh) * S * D;
-    for (int t = threadIdx.x; t < G * D; t += blockDim.x) {
-      const int d = t % D;
-      float sum = 0.f;
-      for (int s = 0; s < S; ++s)
-        sum += repro::to_float(vb[static_cast<size_t>(s) * D + d]);
-      out[static_cast<size_t>(bh) * G * D + t] = Vec<T>::store(sum / S);
-    }
+    mean_of_v(v, out, bh, G, 0, G, D, S);
     return;
   }
   for (int t = threadIdx.x; t < G * D; t += blockDim.x) {
@@ -620,31 +742,27 @@ int dispatch_d(int D, int G, const void* q, const void* k, const void* v,
 
 template <typename T, int D, int GT>
 void launch(const void* q, const void* k, const void* v, const int* lengths,
-            void* out, float* part_m, float* part_l, float* part_acc, int B,
-            int Hkv, int G, int S, int splits, int chunk, float scale,
-            cudaStream_t stream) {
+            void* out, float* part_m, float* part_l, float* part_acc,
+            unsigned* tickets, int B, int Hkv, int G, int S, int splits,
+            int chunk, float scale, cudaStream_t stream) {
   const int tiles = (G + GT - 1) / GT;
   decode_split_kernel<T, D, GT>
       <<<dim3(splits, Hkv * tiles, B), kThreads, 0, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), lengths, part_m, part_l, part_acc, Hkv,
-          G, tiles, S, chunk, scale * kLog2e);
-  const int threads = G * D < 256 ? G * D : 256;
-  decode_merge_kernel<T><<<B * Hkv, threads, 0, stream>>>(
-      part_m, part_l, part_acc, lengths, static_cast<const T*>(v),
-      static_cast<T*>(out), Hkv, G, D, S, splits, chunk);
+          static_cast<const T*>(v), lengths, static_cast<T*>(out), part_m,
+          part_l, part_acc, tickets, Hkv, G, tiles, S, chunk, scale * kLog2e);
 }
 
 template <typename T, int D>
 bool dispatch_g(int G, const void* q, const void* k, const void* v,
                 const int* lengths, void* out, float* pm, float* pl,
-                float* pa, int B, int Hkv, int S, int splits, int chunk,
-                float scale, cudaStream_t st) {
+                float* pa, unsigned* tk, int B, int Hkv, int S, int splits,
+                int chunk, float scale, cudaStream_t st) {
   switch (group_tile(G, 8)) {
-    case 1: launch<T, D, 1>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, G, S, splits, chunk, scale, st); return true;
-    case 2: launch<T, D, 2>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, G, S, splits, chunk, scale, st); return true;
-    case 4: launch<T, D, 4>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, G, S, splits, chunk, scale, st); return true;
-    case 8: launch<T, D, 8>(q, k, v, lengths, out, pm, pl, pa, B, Hkv, G, S, splits, chunk, scale, st); return true;
+    case 1: launch<T, D, 1>(q, k, v, lengths, out, pm, pl, pa, tk, B, Hkv, G, S, splits, chunk, scale, st); return true;
+    case 2: launch<T, D, 2>(q, k, v, lengths, out, pm, pl, pa, tk, B, Hkv, G, S, splits, chunk, scale, st); return true;
+    case 4: launch<T, D, 4>(q, k, v, lengths, out, pm, pl, pa, tk, B, Hkv, G, S, splits, chunk, scale, st); return true;
+    case 8: launch<T, D, 8>(q, k, v, lengths, out, pm, pl, pa, tk, B, Hkv, G, S, splits, chunk, scale, st); return true;
   }
   return false;
 }
@@ -652,13 +770,13 @@ bool dispatch_g(int G, const void* q, const void* k, const void* v,
 template <typename T>
 bool dispatch_d(int D, int G, const void* q, const void* k, const void* v,
                 const int* lengths, void* out, float* pm, float* pl,
-                float* pa, int B, int Hkv, int S, int splits, int chunk,
-                float scale, cudaStream_t st) {
+                float* pa, unsigned* tk, int B, int Hkv, int S, int splits,
+                int chunk, float scale, cudaStream_t st) {
   switch (D) {
-    case 16: return dispatch_g<T, 16>(G, q, k, v, lengths, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st);
-    case 32: return dispatch_g<T, 32>(G, q, k, v, lengths, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st);
-    case 64: return dispatch_g<T, 64>(G, q, k, v, lengths, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st);
-    case 128: return dispatch_g<T, 128>(G, q, k, v, lengths, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st);
+    case 16: return dispatch_g<T, 16>(G, q, k, v, lengths, out, pm, pl, pa, tk, B, Hkv, S, splits, chunk, scale, st);
+    case 32: return dispatch_g<T, 32>(G, q, k, v, lengths, out, pm, pl, pa, tk, B, Hkv, S, splits, chunk, scale, st);
+    case 64: return dispatch_g<T, 64>(G, q, k, v, lengths, out, pm, pl, pa, tk, B, Hkv, S, splits, chunk, scale, st);
+    case 128: return dispatch_g<T, 128>(G, q, k, v, lengths, out, pm, pl, pa, tk, B, Hkv, S, splits, chunk, scale, st);
   }
   return false;
 }
@@ -830,25 +948,32 @@ void dispatch_any(int D, int G, const void* q, const void* k, const void* v,
 // D): contiguous, of one dtype (0 float32, 1 bfloat16), any G >= 1, the
 // query heads in tiles of group_tile(G, 8).  lengths (B,) int32.
 // Partials: part_m/part_l (B, Hkv, splits, G), part_acc (B, Hkv, splits,
-// G, D) float32.  D 16, 32, 64 and 128 run on decode_split_kernel, every
-// other D >= 1 on decode_split_any_kernel.  Returns cudaGetLastError()
-// after both launches, or cudaErrorInvalidValue for another dtype, D < 1,
-// G < 1 or S < 1.
+// G, D) float32.  D 16, 32, 64 and 128 run on decode_split_kernel, one
+// launch that merges its own splits: tickets, at least B * Hkv *
+// ceil(G / tile) unsigned ints, all zero, which the launch leaves zero
+// again (a call on another stream at the same time needs a buffer of its
+// own).  Every other D >= 1 runs on decode_split_any_kernel and
+// decode_merge_kernel, two launches, tickets unused.  Returns
+// cudaGetLastError() after the launches, or cudaErrorInvalidValue for
+// another dtype, D < 1, G < 1, S < 1, or no tickets at those D.
 extern "C" int repro_decode_attn(const void* q, const void* k, const void* v,
                                  const void* lengths, void* out, void* part_m,
-                                 void* part_l, void* part_acc, int B, int Hkv,
-                                 int G, int S, int D, int splits, int chunk,
-                                 float scale, int dtype, void* stream) {
-  if (G < 1 || S < 1 || D < 1 || (dtype != 0 && dtype != 1))
+                                 void* part_l, void* part_acc, void* tickets,
+                                 int B, int Hkv, int G, int S, int D,
+                                 int splits, int chunk, float scale,
+                                 int dtype, void* stream) {
+  if (G < 1 || S < 1 || D < 1 || (dtype != 0 && dtype != 1) ||
+      ((D == 16 || D == 32 || D == 64 || D == 128) && tickets == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int* len = static_cast<const int*>(lengths);
   float* pm = static_cast<float*>(part_m);
   float* pl = static_cast<float*>(part_l);
   float* pa = static_cast<float*>(part_acc);
+  unsigned* tk = static_cast<unsigned*>(tickets);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && !dispatch_d<float>(D, G, q, k, v, len, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st))
+  if (dtype == 0 && !dispatch_d<float>(D, G, q, k, v, len, out, pm, pl, pa, tk, B, Hkv, S, splits, chunk, scale, st))
     dispatch_any<float>(D, G, q, k, v, len, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st);
-  if (dtype == 1 && !dispatch_d<__nv_bfloat16>(D, G, q, k, v, len, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st))
+  if (dtype == 1 && !dispatch_d<__nv_bfloat16>(D, G, q, k, v, len, out, pm, pl, pa, tk, B, Hkv, S, splits, chunk, scale, st))
     dispatch_any<__nv_bfloat16>(D, G, q, k, v, len, out, pm, pl, pa, B, Hkv, S, splits, chunk, scale, st);
   return static_cast<int>(cudaGetLastError());
 }

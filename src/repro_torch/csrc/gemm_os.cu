@@ -63,6 +63,16 @@
 //     every k step, and mma.sync from registers reaches about 60% of the
 //     wgmma rate.  The split values have their low 13 bits 0, so wgmma
 //     reads them exactly.
+//   * The scratch is capped (kernel.py: TF32X3_SCRATCH_BYTES, 2 GiB, 2.5%
+//     of the card; ffn_in's 151 MB is one panel).  A product whose
+//     2 (M + N) K floats pass the cap runs as panel products, one call of
+//     this entry each, on the caller's stream: a row panel of A times a
+//     column panel of B, whole tiles and the whole K, B read and C
+//     written at their row strides ldb and ldc.  A panel's split operand
+//     is written once for all the panel products that use it (split_a,
+//     split_b), and every C tile is computed as in one whole call: the
+//     same tile, the same K loop, so the two agree bit for bit.  Offsets
+//     are 64-bit: at M = K = N = 60000, M K is 3.6e9.
 //   * The main kernel is the bf16 route's block (producer warp, TMA ring,
 //     128-byte swizzle, one or two consumer warpgroups) with float32
 //     stages of 32 k: A_hi, A_lo, B_hi and B_lo tiles, 64 KB a stage at
@@ -525,14 +535,15 @@ using repro::hopper::wgmma_fence;
 using repro::hopper::wgmma_wait;
 
 // The split pass.  Blocks [0, a_blocks): A2[i] = hi(A[i]) and A2[M K + i]
-// = lo(A[i]), four floats a thread.  The rest: one 32 x 32 tile of B each,
-// transposed through shared memory, B2[n][k] = hi(B[k][n]) and
-// B2[N + n][k] = lo(B[k][n]).  kSplitThreads threads.
+// = lo(A[i]), four floats a thread.  The rest: one 32 x 32 tile of B each
+// (B's rows ldb floats apart), transposed through shared memory,
+// B2[n][k] = hi(B[k][n]) and B2[N + n][k] = lo(B[k][n]).  kSplitThreads
+// threads.  Offsets are 64-bit: M K passes 2^31 at M = K = 60000.
 __global__ void __launch_bounds__(kSplitThreads)
     split_kernel(const float* __restrict__ A, const float* __restrict__ B,
                  float* __restrict__ A2, float* __restrict__ B2, int M, int N,
-                 int K, int a_blocks) {
-  if (static_cast<int>(blockIdx.x) < a_blocks) {
+                 int K, int ldb, long long a_blocks) {
+  if (static_cast<long long>(blockIdx.x) < a_blocks) {
     const size_t mk = static_cast<size_t>(M) * K;
     const size_t i = (static_cast<size_t>(blockIdx.x) * kSplitThreads +
                       threadIdx.x) * 4;
@@ -548,13 +559,15 @@ __global__ void __launch_bounds__(kSplitThreads)
     return;
   }
   __shared__ float t[32][33];
-  const int tile = blockIdx.x - a_blocks, tiles_n = (N + 31) / 32;
-  const int k0 = (tile / tiles_n) * 32, n0 = (tile % tiles_n) * 32;
+  const long long tile = static_cast<long long>(blockIdx.x) - a_blocks;
+  const int tiles_n = (N + 31) / 32;
+  const int k0 = static_cast<int>(tile / tiles_n) * 32;
+  const int n0 = static_cast<int>(tile % tiles_n) * 32;
   const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
 #pragma unroll
   for (int r = ty; r < 32; r += kSplitThreads / 32) {
     const int k = k0 + r, n = n0 + tx;
-    t[r][tx] = (k < K && n < N) ? B[static_cast<size_t>(k) * N + n] : 0.f;
+    t[r][tx] = (k < K && n < N) ? B[static_cast<size_t>(k) * ldb + n] : 0.f;
   }
   __syncthreads();
 #pragma unroll
@@ -638,15 +651,16 @@ __device__ __forceinline__ void wgmma_tile<128>(float (&d)[64], uint64_t da,
   wgmma_m64n128k8(d, da, db, scale_d);
 }
 
-// sum_k A[m][k] B[k][n] by IEEE float32 FMAs, k in order: the epilogue's
-// value for an output whose split sum is not finite.
+// sum_k A[m][k] B[k][n] by IEEE float32 FMAs, k in order, B's rows ldb
+// floats apart: the epilogue's value for an output whose split sum is not
+// finite.
 __device__ __noinline__ float dot_f32(const float* __restrict__ A,
                                       const float* __restrict__ B, int m,
-                                      int n, int N, int K) {
+                                      int n, int ldb, int K) {
   const float* a = A + static_cast<size_t>(m) * K;
   float s = 0.f;
   for (int k = 0; k < K; ++k)
-    s = fmaf(a[k], B[static_cast<size_t>(k) * N + n], s);
+    s = fmaf(a[k], B[static_cast<size_t>(k) * ldb + n], s);
   return s;
 }
 
@@ -654,9 +668,10 @@ __device__ __noinline__ float dot_f32(const float* __restrict__ A,
 // ring of STAGES stages, each [A_hi | A_lo] (BM x 32 float32 each) and
 // [B_hi | B_lo] (BN x 32 each, K-major), 128-byte swizzled, the ring
 // starting at the first 1024-byte boundary of dynamic shared memory.
-// tmA maps A2 (2M, K), tmB B2 (2N, K); A and B are the call's own inputs,
-// read only to recompute a non-finite output.  grid (gm, gn) or, with
-// coalesce, (gm * gn), M fastest.
+// tmA maps A2 (2M, K), tmB B2 (2N, K); A and B are the panel's own inputs
+// (B's rows ldb floats apart), read only to recompute a non-finite output;
+// C's rows are ldc apart.  grid (gm, gn) or, with coalesce, (gm * gn), M
+// fastest.
 template <int NC, int BN, int STAGES, typename TO>
 __global__ void __launch_bounds__(128 * NC + 32, NC == 1 ? 2 : 1)
     gemm_os_tf32x3_kernel(const __grid_constant__ CUtensorMap tmA,
@@ -664,7 +679,8 @@ __global__ void __launch_bounds__(128 * NC + 32, NC == 1 ? 2 : 1)
                           const float* __restrict__ A,
                           const float* __restrict__ B,
                           const float* __restrict__ bias, TO* __restrict__ C,
-                          int M, int N, int K, int act, int coalesce) {
+                          int M, int N, int K, int ldb, int ldc, int act,
+                          int coalesce) {
   constexpr int BM = 64 * NC;
   constexpr int A_BYTES = BM * kRowBytes;  // one of A_hi, A_lo
   constexpr int B_BYTES = BN * kRowBytes;  // one of B_hi, B_lo
@@ -771,33 +787,36 @@ __global__ void __launch_bounds__(128 * NC + 32, NC == 1 ? 2 : 1)
       const int m = row + 8 * h;
       if (m >= M) continue;
       float x0 = acc[4 * j + 2 * h], x1 = acc[4 * j + 2 * h + 1];
-      if (!is_finite(x0)) x0 = dot_f32(A, B, m, n, N, K);
-      if (!is_finite(x1)) x1 = dot_f32(A, B, m, n + 1, N, K);
+      if (!is_finite(x0)) x0 = dot_f32(A, B, m, n, ldb, K);
+      if (!is_finite(x1)) x1 = dot_f32(A, B, m, n + 1, ldb, K);
       if (bias) {
         x0 += b0;
         x1 += b1;
       }
-      store2(C + static_cast<size_t>(m) * N + n, activate(x0, act),
+      store2(C + static_cast<size_t>(m) * ldc + n, activate(x0, act),
              activate(x1, act));
     }
   }
 }
 
+// One panel product: the split pass over the operands it is asked to split
+// (none, either or both), then the product.
 template <int NC, int BN, int STAGES, typename TO>
 int launch(const float* a, const float* b, const float* bias, void* c,
-           float* scratch, int M, int N, int K, int act, int coalesce,
+           float* a2, float* b2, int M, int N, int K, int ldb, int ldc,
+           bool split_a, bool split_b, int act, int coalesce,
            cudaStream_t stream) {
   constexpr int BM = 64 * NC;
   constexpr int smem =
       STAGES * 2 * (BM + BN) * kRowBytes + 1024;  // + alignment
   const EncodeTiled fn = encoder();
   if (!fn) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
-  float* a2 = scratch;
-  float* b2 = scratch + 2 * static_cast<size_t>(M) * K;
   const long long a_blocks =
-      (static_cast<long long>(M) * K / 4 + kSplitThreads - 1) / kSplitThreads;
+      split_a ? (static_cast<long long>(M) * K / 4 + kSplitThreads - 1) /
+                    kSplitThreads
+              : 0;
   const long long b_tiles =
-      static_cast<long long>((K + 31) / 32) * ((N + 31) / 32);
+      split_b ? static_cast<long long>((K + 31) / 32) * ((N + 31) / 32) : 0;
   if (a_blocks + b_tiles > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap ta, tb;
@@ -810,15 +829,17 @@ int launch(const float* a, const float* b, const float* bias, void* c,
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  split_kernel<<<static_cast<int>(a_blocks + b_tiles), kSplitThreads, 0,
-                 stream>>>(a, b, a2, b2, M, N, K, static_cast<int>(a_blocks));
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (a_blocks + b_tiles > 0) {
+    split_kernel<<<static_cast<unsigned>(a_blocks + b_tiles), kSplitThreads,
+                   0, stream>>>(a, b, a2, b2, M, N, K, ldb, a_blocks);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   const int gm = (M + BM - 1) / BM, gn = (N + BN - 1) / BN;
   const dim3 grid = coalesce ? dim3(gm * gn) : dim3(gm, gn);
   kernel<<<grid, 128 * NC + 32, smem, stream>>>(ta, tb, a, b, bias,
                                                 static_cast<TO*>(c), M, N, K,
-                                                act, coalesce);
+                                                ldb, ldc, act, coalesce);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -827,14 +848,15 @@ int launch(const float* a, const float* b, const float* bias, void* c,
 // of 32 KB (97 KB, two blocks an SM).
 template <typename TO>
 int dispatch_tile(int block_m, int block_n, const float* a, const float* b,
-                  const float* bias, void* c, float* scratch, int M, int N,
-                  int K, int act, int coalesce, cudaStream_t st) {
+                  const float* bias, void* c, float* a2, float* b2, int M,
+                  int N, int K, int ldb, int ldc, bool split_a, bool split_b,
+                  int act, int coalesce, cudaStream_t st) {
   if (block_m == 128 && block_n == 128)
-    return launch<2, 128, 3, TO>(a, b, bias, c, scratch, M, N, K, act,
-                                 coalesce, st);
+    return launch<2, 128, 3, TO>(a, b, bias, c, a2, b2, M, N, K, ldb, ldc,
+                                 split_a, split_b, act, coalesce, st);
   if (block_m == 64 && block_n == 64)
-    return launch<1, 64, 3, TO>(a, b, bias, c, scratch, M, N, K, act,
-                                coalesce, st);
+    return launch<1, 64, 3, TO>(a, b, bias, c, a2, b2, M, N, K, ldb, ldc,
+                                split_a, split_b, act, coalesce, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -900,40 +922,51 @@ extern "C" int repro_gemm_os_tc(const void* a, const void* b,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The float32 tensor-core route: as repro_gemm_os with a and b float32, K
-// and N multiples of 4, a, b, c and scratch 16-byte aligned, the tile
-// (block_m, block_n) one of (128, 128) and (64, 64), and scratch_floats,
-// the floats at scratch, at least 2 (M + N) K (the split operands: A2 (2M,
-// K), then B2 (2N, K)).  Two launches on the stream: the split pass, then
-// the product.  Returns cudaErrorInvalidValue for anything else, and
-// cudaErrorSharedObjectSymbolNotFound when libcuda's tensor-map encoder
-// cannot be found.
-extern "C" int repro_gemm_os_tf32x3(const void* a, const void* b,
-                                    const void* bias, void* c, void* scratch,
-                                    long long scratch_floats, int M, int N,
-                                    int K, int out_dtype, int act,
-                                    int coalesce, int block_m, int block_n,
-                                    void* stream) {
+// The float32 tensor-core route, one panel product: C[m0 + i][n0 + j] =
+// act(sum_k A[m0 + i][k] B[k][n0 + j] + bias[n0 + j]) for i < M, j < N,
+// where a is A (rows of K floats), b is B (rows of ldb floats), c is C
+// (rows of ldc, of out_dtype) and bias, when not null, B's columns' bias;
+// a whole call is the panel m0 = n0 = 0, M and N the whole, ldb = ldc = N.
+// a and b float32, K, N, ldb and ldc multiples of 4, n0 + N at most ldb and
+// ldc, a, b, c, a2 and b2 16-byte aligned, the tile (block_m, block_n) one
+// of (128, 128) and (64, 64).  a2 holds a2_floats floats, at least 2 M K
+// (the panel's split A, (2M, K)), b2 b2_floats, at least 2 N K (its split
+// B^T, (2N, K)); split_a / split_b nonzero writes them from a and b first,
+// zero reuses what an earlier panel product on the stream left there.  Up
+// to two launches on the stream: the split pass, if it has work, then the
+// product.  Offsets are taken in 64 bits.  Returns cudaErrorInvalidValue
+// for anything else, and cudaErrorSharedObjectSymbolNotFound when libcuda's
+// tensor-map encoder cannot be found.
+extern "C" int repro_gemm_os_tf32x3(
+    const void* a, const void* b, const void* bias, void* c, void* a2,
+    long long a2_floats, void* b2, long long b2_floats, long long m0,
+    long long n0, int M, int N, int K, int ldb, int ldc, int split_a,
+    int split_b, int out_dtype, int act, int coalesce, int block_m,
+    int block_n, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 4 != 0 || N % 4 != 0 ||
-      act < kNone || act > kSilu || block_m <= 0 || block_n <= 0 ||
-      M > (1 << 30) || N > (1 << 30) || !aligned16(a) || !aligned16(b) ||
-      !aligned16(c) || !aligned16(scratch) ||
-      scratch_floats < 2LL * (static_cast<long long>(M) + N) * K ||
+      ldb % 4 != 0 || ldc % 4 != 0 || m0 < 0 || n0 < 0 || n0 + N > ldb ||
+      n0 + N > ldc || act < kNone || act > kSilu || block_m <= 0 ||
+      block_n <= 0 || M >= (1 << 30) || N >= (1 << 30) || !aligned16(a) ||
+      !aligned16(b) || !aligned16(c) || !aligned16(a2) || !aligned16(b2) ||
+      a2_floats < 2LL * M * K || b2_floats < 2LL * N * K ||
       (coalesce ? bad_grid(M, N, block_m, block_n, 1)
                 : (N + block_n - 1) / block_n > 65535))
     return static_cast<int>(cudaErrorInvalidValue);
-  const float* af = static_cast<const float*>(a);
-  const float* bf = static_cast<const float*>(b);
-  const float* biasf = static_cast<const float*>(bias);
-  float* sf = static_cast<float*>(scratch);
+  const float* af = static_cast<const float*>(a) + m0 * K;
+  const float* bf = static_cast<const float*>(b) + n0;
+  const float* biasf = bias ? static_cast<const float*>(bias) + n0 : nullptr;
+  const long long c_off = m0 * ldc + n0;
+  float* a2f = static_cast<float*>(a2);
+  float* b2f = static_cast<float*>(b2);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_dtype == 0)
-    return tf32x3::dispatch_tile<float>(block_m, block_n, af, bf, biasf, c,
-                                        sf, M, N, K, act, coalesce, st);
+    return tf32x3::dispatch_tile<float>(
+        block_m, block_n, af, bf, biasf, static_cast<float*>(c) + c_off, a2f,
+        b2f, M, N, K, ldb, ldc, split_a, split_b, act, coalesce, st);
   if (out_dtype == 1)
-    return tf32x3::dispatch_tile<__nv_bfloat16>(block_m, block_n, af, bf,
-                                                biasf, c, sf, M, N, K, act,
-                                                coalesce, st);
+    return tf32x3::dispatch_tile<__nv_bfloat16>(
+        block_m, block_n, af, bf, biasf,
+        static_cast<__nv_bfloat16*>(c) + c_off, a2f, b2f, M, N, K, ldb, ldc,
+        split_a, split_b, act, coalesce, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
-

@@ -38,11 +38,28 @@
 // The kernels above are instantiated for D 16, 32, 64 and 128; every other
 // D >= 1 runs on wkv6_any_kernel (below), on both routes.
 //
-// Two routes, chosen by the wrapper from the shape (kernels/wkv6/kernel.py:
+// Three routes, chosen by the wrapper from the shape (kernels/wkv6/kernel.py:
 // route), one C entry each:
 //
+// repro_wkv6_decode, the decode route: one step (T = 1) at D 16, 32, 64 or
+// 128, on wkv6_decode_kernel (below), a block of D^2 / (4 R) threads a
+// (b, h), each owning an R x 4 slice of the state (R 4, or 8 at D 128).
+// At rwkv6-1.6b's decode (B 8, H 32, D 64) the step moves the state's
+// 4 MB in and 4 MB out (plus 20 KB of r, k, v, w and u): 2.56 us at the
+// HBM rate, about the time of one launch, while its 5 D^2 flops a head
+// (1.3 MFLOP a block) are nothing.  The step kernel (above) takes that
+// step as three dependent memory phases on 512 one-warp blocks (4 warps
+// an SM), 64 scalar 4-byte loads and stores a thread, and stages 32
+// steps' worth of shared memory (28 KB a block) for one.  The decode
+// kernel: 256 blocks of 256 threads (two blocks, 16 warps, an SM; no
+// staging, 2 KB of shared memory for the reduction), every load of a
+// thread issued at once (4 float4s of state, r/k/w/u as one float4 or two
+// bf16 quads each, v's 4 columns), then the arithmetic, then streaming
+// stores.
+//
 // repro_wkv6, the step route: the kernel above, one chain of T steps per
-// column.  It serves decode (T = 1) and short prompts.
+// column.  It serves short prompts (T from 2 up to one chunk), and T = 1
+// at head sizes the decode kernel is not built for.
 //
 // repro_wkv6_chunked, the chunked route, for prefill: a batch-1 prompt has
 // only (D / kCols) * H one-warp chains of T steps, too few to fill the
@@ -273,6 +290,156 @@ bool dispatch_d(int D, const void* r, const void* k, const void* v,
     case 32: launch<T, 32>(r, k, v, w, u, s0, out, s_out, B, T_len, H, st); return true;
     case 64: launch<T, 64>(r, k, v, w, u, s0, out, s_out, B, T_len, H, st); return true;
     case 128: launch<T, 128>(r, k, v, w, u, s0, out, s_out, B, T_len, H, st); return true;
+  }
+  return false;
+}
+
+// ---- The decode route: one step (T = 1) of one (b, h) per block.
+// The state's 4 D^2 bytes in and out are the whole cost (r, k, w, v and
+// the output are 5 D values), so the kernel is built for the memory
+// system: thread x owns an R x 4 slice of S, rows d0 = R (x / CG) .. + R - 1
+// and columns e0 = 4 (x % CG) .. + 3 (CG = D / 4 column groups), and
+// issues every load before any arithmetic: its R rows of S as 16-byte
+// float4s (a warp's loads are whole 128-byte lines: CG neighbouring
+// threads cover a row), its R values of r, k, w and u and its 4 of v as
+// one or two vectors each (a broadcast: the row group's threads read the
+// same bytes).  Then o's partial sums over its rows, reduced across the
+// row groups by shuffles within a warp and through shared memory across
+// warps, in a fixed order (a rerun is bit-equal), and the new state out by
+// streaming stores (st.global.cs: nothing reads it again in this step).
+template <int D>
+struct DecodeShape {
+  static constexpr int CG = D / 4;             // column groups of 4
+  static constexpr int R = D <= 64 ? 4 : 8;    // rows a thread owns
+  static constexpr int RG = D / R;             // row groups
+  static constexpr int NT = CG * RG;           // threads of a block
+  static constexpr int W = (NT + 31) / 32;     // warps
+  static constexpr int RW = (NT < 32 ? NT : 32) / CG;  // row groups a warp
+};
+
+// n consecutive values of T from p, widened to float: 16-byte vectors,
+// 8-byte ones for 4 bfloat16.
+template <typename T, int n>
+__device__ __forceinline__ void load_vec(const T* p, float* out);
+template <>
+__device__ __forceinline__ void load_vec<float, 4>(const float* p,
+                                                   float* out) {
+  Vec<float>::load(p, out);
+}
+template <>
+__device__ __forceinline__ void load_vec<float, 8>(const float* p,
+                                                   float* out) {
+  Vec<float>::load(p, out);
+  Vec<float>::load(p + 4, out + 4);
+}
+template <>
+__device__ __forceinline__ void load_vec<__nv_bfloat16, 4>(
+    const __nv_bfloat16* p, float* out) {
+  const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  out[0] = a.x;
+  out[1] = a.y;
+  out[2] = b.x;
+  out[3] = b.y;
+}
+template <>
+__device__ __forceinline__ void load_vec<__nv_bfloat16, 8>(
+    const __nv_bfloat16* p, float* out) {
+  Vec<__nv_bfloat16>::load(p, out);
+}
+
+// grid (H, B), DecodeShape<D>::NT threads: S_out = diag(w) S + k^T v and
+// o = r (S + diag(u) k^T v) for one step of (b, h) = (blockIdx.y,
+// blockIdx.x).  state_out may alias state0: each thread reads its own
+// slice before it writes it, and no other thread reads that slice.
+template <typename T, int D>
+__global__ void __launch_bounds__(DecodeShape<D>::NT)
+    wkv6_decode_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ w,
+                       const float* __restrict__ u, const float* state0,
+                       T* __restrict__ out, float* state_out, int H) {
+  using Sh = DecodeShape<D>;
+  constexpr int R = Sh::R, CG = Sh::CG;
+  constexpr unsigned kMask = Sh::NT >= 32 ? 0xffffffffu : (1u << Sh::NT) - 1u;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int cg = threadIdx.x % CG, rg = threadIdx.x / CG;
+  const int d0 = rg * R, e0 = 4 * cg;
+  const size_t bh = static_cast<size_t>(b) * H + h;
+  const size_t at = bh * D;                    // (b, 0, h, 0) of (B, 1, H, D)
+  const size_t s_at = bh * D * D + static_cast<size_t>(d0) * D + e0;
+
+  float4 S[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    S[i] = state0 ? __ldcs(reinterpret_cast<const float4*>(
+                        state0 + s_at + static_cast<size_t>(i) * D))
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+  float rr[R], kk[R], ww[R], uu[R], vv[4];
+  load_vec<T, R>(r + at + d0, rr);
+  load_vec<T, R>(k + at + d0, kk);
+  load_vec<T, R>(w + at + d0, ww);
+  load_vec<float, R>(u + static_cast<size_t>(h) * D + d0, uu);
+  load_vec<T, 4>(v + at + e0, vv);
+
+  float o[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    o[0] = step(S[i].x, rr[i], kk[i], ww[i], uu[i], vv[0], o[0]);
+    o[1] = step(S[i].y, rr[i], kk[i], ww[i], uu[i], vv[1], o[1]);
+    o[2] = step(S[i].z, rr[i], kk[i], ww[i], uu[i], vv[2], o[2]);
+    o[3] = step(S[i].w, rr[i], kk[i], ww[i], uu[i], vv[3], o[3]);
+    __stcs(reinterpret_cast<float4*>(state_out + s_at +
+                                     static_cast<size_t>(i) * D),
+           S[i]);
+  }
+  // The row groups of a warp hold the same columns CG lanes apart.
+#pragma unroll
+  for (int off = CG; off < CG * Sh::RW; off <<= 1) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[j] += __shfl_xor_sync(kMask, o[j], off);
+  }
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  if (Sh::W == 1) {
+    if (lane < CG) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) out[at + e0 + j] = Vec<T>::store(o[j]);
+    }
+    return;
+  }
+  __shared__ float red[Sh::W][D];
+  if (lane < CG) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) red[warp][e0 + j] = o[j];
+  }
+  __syncthreads();
+  if (threadIdx.x < D) {
+    float x = 0.f;
+#pragma unroll
+    for (int i = 0; i < Sh::W; ++i) x += red[i][threadIdx.x];
+    out[at + threadIdx.x] = Vec<T>::store(x);
+  }
+}
+
+template <typename T, int D>
+void launch_decode(const void* r, const void* k, const void* v,
+                   const void* w, const float* u, const float* s0, void* out,
+                   float* s_out, int B, int H, cudaStream_t stream) {
+  wkv6_decode_kernel<T, D><<<dim3(H, B), DecodeShape<D>::NT, 0, stream>>>(
+      static_cast<const T*>(r), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(w), u, s0,
+      static_cast<T*>(out), s_out, H);
+}
+
+template <typename T>
+bool dispatch_decode(int D, const void* r, const void* k, const void* v,
+                     const void* w, const float* u, const float* s0,
+                     void* out, float* s_out, int B, int H, cudaStream_t st) {
+  switch (D) {
+    case 16: launch_decode<T, 16>(r, k, v, w, u, s0, out, s_out, B, H, st); return true;
+    case 32: launch_decode<T, 32>(r, k, v, w, u, s0, out, s_out, B, H, st); return true;
+    case 64: launch_decode<T, 64>(r, k, v, w, u, s0, out, s_out, B, H, st); return true;
+    case 128: launch_decode<T, 128>(r, k, v, w, u, s0, out, s_out, B, H, st); return true;
   }
   return false;
 }
@@ -822,6 +989,30 @@ extern "C" int repro_wkv6(const void* r, const void* k, const void* v,
     launch_any_step<float>(r, k, v, w, uf, s0, out, so, B, T_len, H, D, st);
   if (dtype == 1 && !dispatch_d<__nv_bfloat16>(D, r, k, v, w, uf, s0, out, so, B, T_len, H, st))
     launch_any_step<__nv_bfloat16>(r, k, v, w, uf, s0, out, so, B, T_len, H, D, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The decode route: as repro_wkv6 with T = 1 and D one of 16, 32, 64 and
+// 128, on wkv6_decode_kernel; r/k/v/w/out 16-byte aligned.  state_out may
+// alias state0.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for another dtype, D or T.
+extern "C" int repro_wkv6_decode(const void* r, const void* k, const void* v,
+                                 const void* w, const void* u,
+                                 const void* state0, void* out,
+                                 void* state_out, int B, int T_len, int H,
+                                 int D, int dtype, void* stream) {
+  const float* uf = static_cast<const float*>(u);
+  const float* s0 = static_cast<const float*>(state0);
+  float* so = static_cast<float*>(state_out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (T_len != 1 || B < 1 || H < 1 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool ok =
+      dtype == 0
+          ? dispatch_decode<float>(D, r, k, v, w, uf, s0, out, so, B, H, st)
+          : dispatch_decode<__nv_bfloat16>(D, r, k, v, w, uf, s0, out, so, B,
+                                           H, st);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 

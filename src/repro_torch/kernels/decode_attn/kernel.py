@@ -15,8 +15,12 @@ the head shape and the pointers' alignment before the launch:
   scalar loads); splits of ``split_plan``.
 
 On both the S axis is split across blocks so that a decode batch, which
-has only B * Hkv (batch, kv-head) pairs, still fills the card; a second
-launch in the same C call merges the splits.  Both take any G: a block
+has only B * Hkv (batch, kv-head) pairs, still fills the card.  The
+splits are merged by a second launch in the same C call on the
+tensor-core route and the any-D kernel, and in the same launch on the
+SIMT route at ``HEAD_DIMS``: there the last split block of each group to
+finish (by a ticket counter, ``_tickets``) merges the group's partials
+in split order.  Both take any G: a block
 serves one tile of ``group_tile(G, kind)`` query heads, and a grid axis
 runs over the ``cdiv(G, tile)`` tiles of a KV head.  A row of length 0
 gets the mean of its V over all S rows, as the plain version gives it.
@@ -40,6 +44,7 @@ _THREADS = 128            # kThreads in the source
 _KEYS = 4                 # kKeys in the source
 _ANY_ROWS = _THREADS // 32   # rows a loop trip of the any-D kernel reads
 BLOCKS_PER_SM = 8         # split target: this many split blocks per SM
+SIMT_MIN_STEPS = 2        # float32 vector-kernel splits: steps at least
 ROUTES = ("tensor_core", "simt")
 TC_TILE = 64              # keys a tensor-core block takes per step (TILE)
 TC_MIN_CHUNK = 256        # rows a tensor-core split covers at least
@@ -55,7 +60,7 @@ def _sm_count(device_index: int) -> int:
 def _entries():
     lib = _build.load("decode_attn")
     simt = lib.repro_decode_attn
-    simt.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    simt.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     simt.restype = ctypes.c_int
     tc = lib.repro_decode_attn_tc
@@ -93,13 +98,22 @@ def split_plan(B: int, Hkv: int, S: int, D: int, dtype: torch.dtype,
     (rows read per loop trip: the vector kernel's thread groups times
     their keys at ``HEAD_DIMS``, the any-D kernel's warps elsewhere), and
     there are about BLOCKS_PER_SM split blocks per SM when S is long
-    enough."""
+    enough.  In float32 at ``HEAD_DIMS`` (the one-launch vector kernel) a
+    split is at least ``SIMT_MIN_STEPS`` steps, 64 rows at D 64: the
+    kernel path's 512 positions run as 8 splits, not 16 of one step
+    each, so the blocks that merge a group read 8 partials in one round
+    trip (``chip_smoke.py`` times the row at 32 to 512 rows a split).
+    Every split holds rows at the full length S; a row of length n uses
+    splits 0 .. ceil(n / chunk) - 1, and one of length 0 none (the
+    kernel's split 0 writes its mean of V)."""
     if D in HEAD_DIMS:
         step = (_THREADS // (D // (16 // dtype.itemsize))) * _KEYS
     else:
         step = _ANY_ROWS
     want = max(1, cdiv(BLOCKS_PER_SM * n_sms, B * Hkv))
     chunk = cdiv(cdiv(S, min(want, cdiv(S, step))), step) * step
+    if D in HEAD_DIMS and dtype == torch.float32:
+        chunk = max(chunk, SIMT_MIN_STEPS * step)
     return cdiv(S, chunk), chunk
 
 
@@ -122,6 +136,25 @@ def plan(kind: str, B: int, Hkv: int, G: int, S: int, D: int,
     if kind == "tensor_core":
         return split_plan_tc(B, pairs, S, n_sms)
     return split_plan(B, pairs, S, D, dtype, n_sms)
+
+
+# (device index, stream) -> the SIMT vector kernel's ticket counters, all
+# zero between calls (each launch's merging blocks set theirs back to 0).
+# One buffer per stream: calls on two streams may run at once, calls on
+# one stream never do.
+_TICKETS: dict = {}
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 ticket counters for calls on ``stream``
+    of ``device``, kept from call to call and grown (a new zeroed buffer)
+    when a call needs more."""
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
 
 
 def decode_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -169,7 +202,10 @@ def decode_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if kind == "tensor_core":
             err = tc(*args, stream)
         else:
-            err = simt(*args, _DTYPES[q.dtype], stream)
+            tickets = _tickets(q.device, stream,
+                               B * Hkv * cdiv(G, group_tile(G, kind)))
+            err = simt(*args[:8], tickets.data_ptr(), *args[8:],
+                       _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"decode_attn kernel launch failed ({kind} "
                            f"route): CUDA error {err}")

@@ -1,21 +1,29 @@
 """Launchers of the hand-written Hopper WKV6 kernels (``csrc/wkv6.cu``),
 bound with ctypes.
 
-Two routes, one C entry point each; ``route`` picks one from the shape
+Three routes, one C entry point each; ``route`` picks one from the shape
 before the launch:
 
+* ``decode``: one step (T = 1) at D in ``HEAD_DIMS``, with or without a
+  state: a block of D^2 / 16 threads (D^2 / 32 at D 128) a (batch,
+  head), each owning a slice of rows x 4 columns of the state, every load
+  issued before the arithmetic (the state as 16-byte vectors, r, k, w, u
+  and v once each), the output's sum over d reduced by shuffles and
+  shared memory in a fixed order, the new state out by streaming stores.
+  Its own C entry (``repro_wkv6_decode``) and its own count in
+  ``wkv6.launches_by_route``.
 * ``step``: one thread owns one column of a (batch, head)'s D x D state
   for all T steps; the columns are split across blocks of 32, so a
-  batch-1 call spreads over D / 32 * H blocks.  Decode (T = 1) and
-  prompts shorter than one chunk (``CHUNK_T`` steps).
+  batch-1 call spreads over D / 32 * H blocks.  Prompts shorter than one
+  chunk (``CHUNK_T`` steps), and T = 1 at other D.
 * ``chunked``: T is cut into chunks of ``CHUNK_T`` steps that run the
   same recurrence in parallel from a zero state, a scan over the chunks
   carries the state (only products of decays, no division), and a
   correction adds each chunk's carried-in state to its outputs.  Three
   launches in one C call, with float32 scratch from PyTorch's allocator.
 
-Both routes take any head size D >= 1: D in ``HEAD_DIMS`` runs on the
-kernels instantiated for it, every other D on the source's
+``step`` and ``chunked`` take any head size D >= 1: D in ``HEAD_DIMS``
+runs on the kernels instantiated for it, every other D on the source's
 ``wkv6_any_kernel`` (one thread a column of the state, D a runtime
 value), inside the same C entry points.
 
@@ -48,7 +56,7 @@ from ..common import cdiv, check_on_card
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)   # D the fast kernels are instantiated for
-ROUTES = ("step", "chunked")
+ROUTES = ("decode", "step", "chunked")
 CHUNK_T = 64          # steps a chunk of the chunked route covers
 BACKWARD_ROUTES = ("step", "chunked", "parallel")
 BWD_HEAD_DIMS = (16, 32, 64)   # D the parallel backward is built for
@@ -62,6 +70,9 @@ def _entries():
     step.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                      + [ctypes.c_void_p])
     step.restype = ctypes.c_int
+    decode = lib.repro_wkv6_decode
+    decode.argtypes = step.argtypes
+    decode.restype = ctypes.c_int
     chunked = lib.repro_wkv6_chunked
     chunked.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                         + [ctypes.c_void_p])
@@ -69,7 +80,8 @@ def _entries():
     states = lib.repro_wkv6_chunk_states
     states.argtypes = chunked.argtypes
     states.restype = ctypes.c_int
-    return {"step": step, "chunked": chunked, "states": states}
+    return {"decode": decode, "step": step, "chunked": chunked,
+            "states": states}
 
 
 @functools.cache
@@ -87,14 +99,17 @@ def _backward_entries():
 
 
 def route(B: int, T: int, H: int, D: int) -> str:
-    """The route of a call of ``T`` steps: ``chunked`` from one whole
-    chunk (``CHUNK_T`` steps) up, else ``step``.  Timed on an H100 at
-    rwkv6-1.6b's heads and batch 1 (``chip_smoke.py`` times both routes
-    at T 48 and 64), the chunked route is the faster from about T 32; one
-    threshold at one chunk keeps decode and short prompts on the step
-    kernel and every prefill of rwkv6-1.6b's serving episode (prompts of
-    64 to 1024) on the chunked route.  B, H and D do not move the rule."""
-    del B, H, D
+    """The route of a call of ``T`` steps: ``decode`` for one step at D in
+    ``HEAD_DIMS``; ``chunked`` from one whole chunk (``CHUNK_T`` steps)
+    up; else ``step``.  Timed on an H100 at rwkv6-1.6b's heads and batch 1
+    (``chip_smoke.py`` times both routes at T 48 and 64), the chunked
+    route is the faster from about T 32; one threshold at one chunk keeps
+    short prompts on the step kernel and every prefill of rwkv6-1.6b's
+    serving episode (prompts of 64 to 1024) on the chunked route.  B and H
+    do not move the rule."""
+    del B, H
+    if T == 1 and D in HEAD_DIMS:
+        return "decode"
     return "chunked" if T >= CHUNK_T else "step"
 
 
@@ -167,9 +182,9 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(r.device).cuda_stream
         args = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                 u.data_ptr(), s0, out.data_ptr(), state.data_ptr())
-        if kind == "step":
-            err = _entries()["step"](*args, B, T, H, D, _DTYPES[r.dtype],
-                                     stream)
+        if kind in ("decode", "step"):
+            err = _entries()[kind](*args, B, T, H, D, _DTYPES[r.dtype],
+                                   stream)
         else:
             scratch, ptrs = _chunked_scratch(B, T, H, D, r.device)
             err = _entries()["chunked"](*args, *ptrs, B, T, H, D, CHUNK_T,

@@ -3,8 +3,9 @@ PyTorch version on CPU tensors.
 
 ``wkv6.launches`` counts the kernel's launches, so a run can show that
 its main path went through the kernel, and ``wkv6.launches_by_route`` the
-launches of each route (``kernel.route``: ``step`` or ``chunked``; the
-chunked route's three kernels are one C call and count as one launch).
+launches of each route (``kernel.route``: ``decode``, ``step`` or
+``chunked``; the chunked route's three kernels are one C call and count
+as one launch).
 
 On the card the kernel runs inside an ``autograd.Function``: its forward
 is the kernel, its backward ``wkv6_backward``, the backward kernels

@@ -71,6 +71,54 @@ def test_split_plan(S, dtype, want):
     assert splits * chunk >= S > (splits - 1) * chunk
 
 
+@pytest.mark.parametrize("B,Hkv,G,S,D,want", [
+    (2, 2, 4, 512, 64, (8, 64)),      # the kernel path's float32 row
+    (8, 8, 4, 2048, 64, (16, 128)),   # llama3.2-1b's decode shape
+    (1, 8, 4, 32768, 64, (128, 256)),  # one long cache at batch 1
+    (8, 8, 4, 1, 64, (1, 64)),
+    (8, 8, 4, 100, 64, (2, 64)),
+    (8, 8, 4, 1000, 64, (16, 64)),
+    (8, 1, 1, 100000, 64, (131, 768)),
+    (8, 2, 4, 100000, 16, (66, 1536)),
+    (4, 2, 4, 600, 16, (3, 256)),
+    (8, 1, 48, 2048, 128, (22, 96)),
+    (2, 2, 4, 512, 128, (16, 32)),
+])
+def test_split_plan_float32_blocks_hold_two_steps(B, Hkv, G, S, D, want):
+    """float32 at the vector kernel's head_dims (one launch, merged in
+    place): a split is at least SIMT_MIN_STEPS = 2 of the block's steps
+    (64 rows at D 64, 32 at D 128, 256 at D 16), so the kernel path's 512
+    positions run as 8 splits of 64, not 16 of 32; long caches keep about
+    BLOCKS_PER_SM blocks an SM.  At every length n
+    from 0 to S the splits that hold rows are 0 .. ceil(n / chunk) - 1,
+    each non-empty, together [0, n), at most all of them, and every
+    split holds rows at n = S; a row of length 0 uses none (split 0
+    writes its mean of V)."""
+    splits, chunk = kmod.plan("simt", B, Hkv, G, S, D, torch.float32, 132)
+    assert (splits, chunk) == want
+    step = (kmod._THREADS // (D // 4)) * kmod._KEYS
+    assert chunk % step == 0 and chunk >= kmod.SIMT_MIN_STEPS * step
+    assert splits * chunk >= S > (splits - 1) * chunk
+    for n in sorted({0, 1, chunk - 1, chunk, chunk + 1, S // 2, S - 1, S}):
+        if not 0 <= n <= S:
+            continue
+        used = min(splits, cdiv(n, chunk))
+        rows = [(i * chunk, min((i + 1) * chunk, n)) for i in range(used)]
+        assert all(a < b for a, b in rows)
+        assert sum(b - a for a, b in rows) == n
+        assert all(i * chunk >= n for i in range(used, splits))
+        assert (used == 0) == (n == 0)
+    assert min(splits, cdiv(S, chunk)) == splits
+
+
+def test_split_plan_bf16_and_any_head_dim_keep_one_step():
+    """The two-step minimum is the float32 vector kernel's: bf16 at the
+    vector head_dims (the SIMT entry the tensor-core route replaced) and
+    the any-D kernel keep splits of one step where the card wants them."""
+    assert kmod.split_plan(2, 2, 512, 64, torch.bfloat16, 132) == (8, 64)
+    assert kmod.split_plan(2, 2, 600, 80, torch.float32, 132) == (150, 4)
+
+
 def test_pad_to_and_cdiv():
     x = torch.arange(6.0).reshape(2, 3)
     padded, n = pad_to(x, 1, 4)

@@ -167,6 +167,15 @@ def test_gemm_os_kernel_rejects(change, error, match):
     (129, 37, 255, torch.float32, True, ("simt", 128, 128)),
     (1, 1, 1, torch.float32, True, ("simt", 128, 128)),
     (1024, 2048, 8192, torch.float32, False, ("simt", 128, 128)),
+    # K at the scratch cap: one full wave over K must fit in 2 GiB
+    (60000, 60000, 60000, torch.float32, True, ("tf32x3", 128, 128)),
+    (60000, 91180, 60000, torch.float32, True, ("tf32x3", 128, 128)),
+    (60000, 91184, 60000, torch.float32, True, ("simt", 128, 128)),
+    (1408, 182360, 1408, torch.float32, True, ("tf32x3", 64, 64)),
+    (1408, 182364, 1408, torch.float32, True, ("simt", 128, 128)),
+    (8, 31744, 8448, torch.float32, True, ("tf32x3", 64, 64)),
+    (8, 31748, 8448, torch.float32, True, ("simt", 128, 128)),
+    (8, 200000, 64, torch.float32, True, ("tf32x3", 64, 64)),
 ])
 def test_gemm_os_route(M, K, N, dtype, aligned, want):
     """The tensor-core route takes bf16 with K and N multiples of 8 (TMA's
@@ -174,7 +183,11 @@ def test_gemm_os_route(M, K, N, dtype, aligned, want):
     to M 64 and 128 x 128 above; tf32x3 takes float32 with K and N
     multiples of 4 (16-byte rows) and aligned pointers, with the 64 x 64
     tile up to M 64 and wherever 128 x 128 tiles would be fewer than the
-    card's 132 SMs; the rest run on SIMT."""
+    card's 132 SMs, as long as one full wave of tiles (132, or all the
+    product has) over the whole K fits its split operands under the
+    scratch cap: 12 x 11 tiles of 128 up to K 91180, of 64 up to K
+    182360, one row of 132 tiles of 64 at M 8 up to K 31744; a product of
+    one tile fits to K 200000 and beyond.  The rest run on SIMT."""
     assert tuple(kmod.route(M, K, N, dtype, aligned)) == want
 
 
@@ -199,10 +212,91 @@ def test_gemm_os_tf32x3_tiles_fill_the_card():
 
 
 def test_gemm_os_tf32x3_scratch():
-    """The wrapper's scratch for the split operands: [A_hi; A_lo] (2M, K)
-    and [B_hi^T; B_lo^T] (2N, K), in float32."""
+    """The wrapper's scratch for the split operands of one panel product:
+    [A_hi; A_lo] (2 Pm, K) and [B_hi^T; B_lo^T] (2 Pn, K), in float32.  At
+    ffn_in the one panel is the whole product, 151 MB; at 60000^3 the
+    largest panel pair (12 x 22 tiles of 128), under the 2 GiB cap."""
     assert kmod.tf32x3_scratch_floats(1024, 2048, 8192) == \
         2 * 1024 * 2048 + 2 * 8192 * 2048
+    assert kmod.tf32x3_scratch_floats(60000, 60000, 60000) == \
+        2 * (12 * 128 + 22 * 128) * 60000
+    assert 4 * kmod.tf32x3_scratch_floats(60000, 60000, 60000) <= \
+        kmod.TF32X3_SCRATCH_BYTES
+    cap = 8 * 1024 * 640       # panel pairs of 5 tiles of 128 at K 1024
+    assert sum(kmod._panel_scratch(kmod.tf32x3_panels(
+        2048, 1024, 2048, 128, 128, cap), 1024)) <= cap // 4
+
+
+def _walk_panels(M, K, N, bm, bn, cap):
+    """Checks tf32x3_panels' plan: every panel product under the cap, its
+    split operands in the scratch when it runs (written by it or left by
+    the product before it), and every (bm x bn) tile of C covered exactly
+    once.  Returns the panels."""
+    panels = kmod.tf32x3_panels(M, K, N, bm, bn, cap)
+    seen = np.zeros((cdiv(M, bm), cdiv(N, bn)), np.int64)
+    held_a = held_b = None
+    for p in panels:
+        assert 8 * K * (p.m + p.n) <= cap or len(panels) == 1
+        assert p.m0 % bm == 0 and p.n0 % bn == 0
+        assert (p.m % bm == 0 or p.m0 + p.m == M) and \
+            (p.n % bn == 0 or p.n0 + p.n == N)
+        if p.split_a:
+            held_a = (p.m0, p.m)
+        if p.split_b:
+            held_b = (p.n0, p.n)
+        assert held_a == (p.m0, p.m) and held_b == (p.n0, p.n)
+        seen[p.m0 // bm:cdiv(p.m0 + p.m, bm),
+             p.n0 // bn:cdiv(p.n0 + p.n, bn)] += 1
+    assert (seen == 1).all()
+    return panels
+
+
+@pytest.mark.parametrize("M,K,N,bm,cap,n_panels", [
+    (1024, 2048, 8192, 128, kmod.TF32X3_SCRATCH_BYTES, 1),   # ffn_in
+    (256, 256, 256, 64, kmod.TF32X3_SCRATCH_BYTES, 1),
+    (60000, 60000, 60000, 128, kmod.TF32X3_SCRATCH_BYTES, 40 * 22),
+    (60000, 91180, 60000, 128, kmod.TF32X3_SCRATCH_BYTES, None),
+    (2048, 1024, 2048, 128, 8 * 1024 * 640, None),
+    (2000, 1000, 1900, 128, 8 * 1000 * 700, None),
+    (1200, 512, 1412, 64, 8 * 512 * 500, None),
+    (8, 4096, 8192, 64, 8 * 4096 * 1000, None),
+])
+def test_tf32x3_panels_cover_every_tile_once_under_the_cap(M, K, N, bm, cap,
+                                                           n_panels):
+    """The panel plan covers each tile of C exactly once, keeps each panel
+    product's 2 (Pm + Pn) K floats under the cap, and splits each operand
+    panel before the products that read it; the ffn_in site is one
+    panel, 60000^3 many (40 row panels of 12 tiles x 22 column panels of
+    22, each full pair two waves of 132 tiles); small caps force panels
+    at small shapes, ragged ones too."""
+    panels = _walk_panels(M, K, N, bm, bm, cap)
+    if n_panels is not None:
+        assert len(panels) == n_panels
+    else:
+        assert len(panels) > 1
+    if len(panels) > 1 and cap == kmod.TF32X3_SCRATCH_BYTES:
+        # full panel pairs hold at least one wave of tiles
+        full = [p for p in panels if p.m % bm == 0 and p.n % bm == 0
+                and p.m0 + p.m < M and p.n0 + p.n < N]
+        assert full and all((p.m // bm) * (p.n // bm) >= kmod.CARD_SMS
+                            for p in full)
+
+
+def test_tf32x3_panels_split_each_outer_panel_once():
+    """At 60000^3 the column panels of B run outside (22 of them, each
+    split once) and A's 40 row panels inside, split once per column
+    panel: 22 M K + N K floats split, not 40 N K + M K."""
+    panels = kmod.tf32x3_panels(60000, 60000, 60000, 128, 128)
+    assert sum(p.split_b for p in panels) == 22
+    assert sum(p.split_a for p in panels) == 22 * 40
+    assert [p.n0 for p in panels] == sorted(p.n0 for p in panels)
+
+
+def test_tf32x3_panels_refuse_a_cap_below_one_tile():
+    with pytest.raises(ValueError, match="scratch cap"):
+        kmod.tf32x3_panels(2048, 1024, 2048, 128, 128, 8 * 1024 * 255)
+    assert len(kmod.tf32x3_panels(2048, 1024, 2048, 128, 128,
+                                  8 * 1024 * 256)) == 256
 
 
 def _tf32_bits_clear(t):

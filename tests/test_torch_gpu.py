@@ -174,6 +174,45 @@ def test_decode_attn_any_group_matches_plain(G, Hkv, D, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("S,G,Hkv,D", [
+    (S, G, Hkv, D) for S in (512, 2048) for G, Hkv in
+    ((1, 8), (4, 2), (8, 2), (48, 1)) for D in (16, 64, 128)]
+    + [(100000, 1, 8, 64), (100000, 4, 2, 16)])
+def test_decode_attn_float32_one_launch_matches_plain(S, G, Hkv, D):
+    """float32 at the head_dims of the vector kernel, which merges its own
+    splits in one launch (by ticket, the last block of a group merging in
+    split order): ragged lengths, length 0 (the mean of V) and a full
+    row, from one split up to hundreds a row, G 1/4/8/48, against the
+    plain version at 2e-4; a rerun, and the same call on a second stream
+    (its own ticket buffer), bit-equal; one launch counted a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    lens_list = [0, 1, 127, 129, S, S // 3, 0, S - 1]
+    B = len(lens_list)
+    rng = np.random.default_rng(S + G * D + Hkv)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to("cuda") for shape in ((B, G * Hkv, D), (B, Hkv, S, D),
+                                         (B, Hkv, S, D)))
+    lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+    assert attn_route(D, G, torch.float32) == "simt"
+    before = decode_attn.launches_by_route["simt"]
+    got = decode_attn(q, k, v, lens)
+    again = decode_attn(q, k, v, lens)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = decode_attn(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert decode_attn.launches_by_route["simt"] == before + 3
+    assert torch.equal(got, again) and torch.equal(got, other)
+    torch.testing.assert_close(got, decode_attn_ref(q, k, v, lens),
+                               rtol=2e-4, atol=2e-4)
+    mean = v.mean(2).repeat_interleave(G, 1)
+    torch.testing.assert_close(got[[0, 6]], mean[[0, 6]], rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.gpu
 def test_smoke_model_on_card_matches_cpu():
     """The smoke llama (float32) served on the card, decode attention in
     the kernel, against the same parameters on the CPU with the plain
@@ -343,9 +382,9 @@ def test_wkv6_chunked_matches_plain(T, decays, D, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wkv6_state_chains_across_routes(dtype):
-    """A prefill on the chunked route, then three decode steps on the step
-    route, each from the state the last call left: the outputs and final
-    state of the whole run, on the card."""
+    """A prefill on the chunked route, then three decode steps on the
+    decode route, each from the state the last call left: the outputs and
+    final state of the whole run, on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     T, n_steps = 1000, 3
@@ -360,14 +399,65 @@ def test_wkv6_state_chains_across_routes(dtype):
         outs.append(out)
     torch.cuda.synchronize()
     assert {kind: n - before[kind] for kind, n in
-            wkv6.launches_by_route.items()} == {"chunked": 1,
-                                                "step": n_steps}
+            wkv6.launches_by_route.items()} == {"chunked": 1, "step": 0,
+                                                "decode": n_steps}
     _wkv6_close((torch.cat(outs, 1), state), wkv6_ref(r, k, v, w, u, s0),
                 dtype)
 
 
+def _wkv6_entry_call(kind, r, k, v, w, u, s0, state):
+    """wkv6 on the ``kind`` route's C entry (``decode`` or ``step``), its
+    new state written to ``state``, which may be ``s0`` itself."""
+    from repro_torch.kernels.wkv6 import kernel as wk
+    Bs, Ts, Hs, Ds = r.shape
+    out = torch.empty_like(r)
+    err = wk._entries()[kind](
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+        u.data_ptr(), None if s0 is None else s0.data_ptr(), out.data_ptr(),
+        state.data_ptr(), Bs, Ts, Hs, Ds, wk._DTYPES[r.dtype],
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return out
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,T,want", [(8, 1, "step"), (1, 32, "step"),
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,D", [(8, 32, 64), (3, 5, 16), (2, 7, 32),
+                                   (4, 3, 128), (1, 1, 64)])
+def test_wkv6_decode_matches_plain(B, H, D, dtype):
+    """The decode route (T = 1) at every D it is built for: from a
+    nonzero state and from zeros, through the op (one launch on decode)
+    and on its C entry with the new state written over state0 (aliased),
+    held to wkv6_ref at the step kernel's tolerances; a rerun bit-equal;
+    the step kernel it replaced, on the same inputs, within the same
+    tolerances."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    r, k, v, w, u, s0 = _wkv6_inputs(B, 1, H, D, dtype, seed=B * H + D)
+    assert wkv6_route(B, 1, H, D) == "decode"
+    want, want0 = wkv6_ref(r, k, v, w, u, s0), wkv6_ref(r, k, v, w, u)
+    before = dict(wkv6.launches_by_route)
+    got, again = wkv6(r, k, v, w, u, s0), wkv6(r, k, v, w, u, s0)
+    got0 = wkv6(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert {kind: n - before[kind] for kind, n in
+            wkv6.launches_by_route.items()} == {"decode": 3, "step": 0,
+                                                "chunked": 0}
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    _wkv6_close(got, want, dtype)
+    _wkv6_close(got0, want0, dtype)
+    state = s0.clone()
+    out = _wkv6_entry_call("decode", r, k, v, w, u, state, state)
+    torch.cuda.synchronize()
+    assert torch.equal(out, got[0]) and torch.equal(state, got[1])
+    step_state = torch.empty_like(s0)
+    step_out = _wkv6_entry_call("step", r, k, v, w, u, s0, step_state)
+    torch.cuda.synchronize()
+    _wkv6_close((step_out, step_state), want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,want", [(8, 1, "decode"), (1, 32, "step"),
                                       (1, CHUNK_T - 1, "step"),
                                       (1, CHUNK_T, "chunked"),
                                       (3, 300, "chunked")])
@@ -846,6 +936,50 @@ def test_gemm_os_tf32x3_non_finite_inputs():
     assert not torch.isfinite(want).all()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
                                equal_nan=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,tiles", [(2048, 1024, 2048, 6),
+                                         (2000, 1000, 1900, 5),
+                                         (1200, 512, 1412, 7),
+                                         (8, 4096, 8192, 16)])
+def test_gemm_os_tf32x3_panels_match_one_call(M, K, N, tiles, out_dtype,
+                                              monkeypatch):
+    """The tf32x3 route forced into panels by a small scratch cap (panel
+    pairs of ``tiles`` tiles; ragged M, N and K, both tiles, bias and
+    silu): held to the plain version at the Table-I tolerance and equal
+    bit for bit to the same call with the default cap (one panel, the
+    same tile), also on the 1-D grid.  The small cap reaches the wrapper
+    through its panel plan alone, so the route and tile stay the rule's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.gemm_os import kernel as gk
+    from repro_torch.kernels.gemm_os.kernel import (gemm_os_cuda,
+                                                    tf32x3_panels)
+    rng = np.random.default_rng(M + N)
+    a = _card(rng.normal(size=(M, K)), torch.float32)
+    b = _card(rng.normal(size=(K, N)) / np.sqrt(K), torch.float32)
+    bias = _card(rng.normal(size=(N,)), torch.float32)
+    r = gemm_route(M, K, N, torch.float32)
+    cap = 8 * K * tiles * r.block_m
+    assert r.kind == "tf32x3" and len(tf32x3_panels(
+        M, K, N, r.block_m, r.block_n, cap)) > 1
+    assert len(tf32x3_panels(M, K, N, r.block_m, r.block_n)) == 1
+    kw = dict(activation="silu", out_dtype=out_dtype)
+    whole, ran = gemm_os_cuda(a, b, bias, **kw)
+    monkeypatch.setattr(gk, "tf32x3_panels", lambda M, K, N, bm, bn:
+                        tf32x3_panels(M, K, N, bm, bn, cap))
+    paneled, ran_p = gemm_os_cuda(a, b, bias, **kw)
+    flat, _ = gemm_os_cuda(a, b, bias, coalesce_grid=True, **kw)
+    torch.cuda.synchronize()
+    assert ran == ran_p == r
+    assert torch.equal(paneled, whole) and torch.equal(flat, whole)
+    rtol, atol = TABLE1_TOL[out_dtype]
+    torch.testing.assert_close(
+        paneled.float(),
+        gemm_ref(a, b, bias, "silu", out_dtype=out_dtype).float(),
+        rtol=rtol, atol=atol)
 
 
 @pytest.mark.gpu

@@ -183,7 +183,14 @@ def test_wkv6_chunked_ref_bf16_output_rounds_once():
 
 
 @pytest.mark.parametrize("B,T,H,D,want", [
-    (8, 1, 32, 64, "step"),                          # rwkv6-1.6b decode
+    (8, 1, 32, 64, "decode"),                        # rwkv6-1.6b decode
+    (1, 1, 32, 64, "decode"),
+    (8, 1, 4, 16, "decode"),
+    (8, 1, 4, 32, "decode"),
+    (8, 1, 4, 128, "decode"),
+    (8, 1, 32, 80, "step"),                          # D it is not built for
+    (8, 1, 4, 8, "step"),
+    (1, 2, 32, 64, "step"),
     (1, kmod.CHUNK_T - 1, 32, 64, "step"),           # a short prompt
     (1, kmod.CHUNK_T, 32, 64, "chunked"),            # the shortest prefill
     (1, kmod.CHUNK_T + 1, 32, 64, "chunked"),        # a short last chunk
@@ -192,10 +199,11 @@ def test_wkv6_chunked_ref_bf16_output_rounds_once():
     (8, 1024, 32, 16, "chunked"),
 ])
 def test_wkv6_route(B, T, H, D, want):
-    """Decode and short prompts run on the step kernel; from one whole
-    chunk (CHUNK_T steps) up, the chunked route, so every prompt of
-    rwkv6-1.6b's serving episode (64 to 1024 tokens) is a chunked
-    prefill."""
+    """One step at a head size the decode kernel is built for (HEAD_DIMS)
+    runs on it; other head sizes at T = 1 and short prompts run on the
+    step kernel; from one whole chunk (CHUNK_T steps) up, the chunked
+    route, so every prompt of rwkv6-1.6b's serving episode (64 to 1024
+    tokens) is a chunked prefill."""
     assert kmod.route(B, T, H, D) == want
 
 
