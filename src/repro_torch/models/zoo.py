@@ -25,6 +25,10 @@ Families, each with the reference's cache layout:
 them for whichever parameters require them (``Model.init`` leaves every
 parameter frozen; ``repro_torch.train`` turns gradients on for the module
 it trains).
+With ``repro_torch.spans`` on, rwkv6's and zamba2's ``prefill`` and
+``decode`` record each block application (``block.rwkv6``,
+``block.mamba2`` with its ``layer``; ``block.shared_attn`` with its
+application as ``layer``) and the final norm and head (``model.head``).
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 from torch import nn
 
+from .. import spans
 from ..device import DeviceLike, resolve_device
 from .common import ModelConfig, constant, rms_norm, weight
 from .mamba2 import Mamba2Block, mamba2_block, mamba_dims
@@ -138,22 +143,29 @@ def _build_rwkv(cfg: ModelConfig, device: torch.device) -> Model:
     def prefill(params, inputs, lengths):
         x = params.embed[inputs]
         new = []
-        for layer in params.layers:
-            x, st = rwkv6_block(layer, cfg, x, None)
+        for i, layer in enumerate(params.layers):
+            with (spans.span("block.rwkv6", layer=i)
+                  if spans.ON else spans.OFF):
+                x, st = rwkv6_block(layer, cfg, x, None)
             new.append(st)
-        h = rms_norm(x, params.ln_f, cfg.rms_eps)
         states = tuple(torch.stack(s) for s in zip(*new))
-        return h[:, -1:] @ params.head, states
+        with spans.span("model.head") if spans.ON else spans.OFF:
+            h = rms_norm(x, params.ln_f, cfg.rms_eps)
+            return h[:, -1:] @ params.head, states
 
     @torch.no_grad()
     def decode(params, states, inputs, positions, lengths):
         x = params.embed[inputs]
         for i, layer in enumerate(params.layers):
-            x, new = rwkv6_block(layer, cfg, x, tuple(s[i] for s in states))
-            for full, s in zip(states, new):
-                full[i] = s
-        h = rms_norm(x, params.ln_f, cfg.rms_eps)
-        return h @ params.head, states
+            with (spans.span("block.rwkv6", layer=i)
+                  if spans.ON else spans.OFF):
+                x, new = rwkv6_block(layer, cfg, x,
+                                     tuple(s[i] for s in states))
+                for full, s in zip(states, new):
+                    full[i] = s
+        with spans.span("model.head") if spans.ON else spans.OFF:
+            h = rms_norm(x, params.ln_f, cfg.rms_eps)
+            return h @ params.head, states
 
     def init_cache(batch: int, max_len: int):
         L = cfg.n_layers        # O(1) state: max_len-independent
@@ -196,31 +208,34 @@ def _build_zamba(cfg: ModelConfig, device: torch.device) -> Model:
         return Zamba2(cfg, gen)
 
     def _apply(params, x, m_states, a_caches, positions, lengths):
-        """Decode when ``a_caches`` is given: every state and cache is
-        written in place.  Prefill otherwise, from zero states: returns
-        the new states and the shared block's K/V of each application,
-        stacked."""
+        """The blocks, before the final norm.  Decode when ``a_caches`` is
+        given: every state and cache is written in place.  Prefill
+        otherwise, from zero states: returns the new states and the
+        shared block's K/V of each application, stacked."""
         new_m, new_a = [], []
         for i, layer in enumerate(params.layers):
             mst = None if m_states is None else (m_states[0][i],
                                                  m_states[1][i])
-            x, mst = mamba2_block(layer, cfg, x, mst)
-            if m_states is None:
-                new_m.append(mst)
-            else:
-                for full, s in zip(m_states, mst):
-                    full[i] = s
+            with (spans.span("block.mamba2", layer=i)
+                  if spans.ON else spans.OFF):
+                x, mst = mamba2_block(layer, cfg, x, mst)
+                if m_states is None:
+                    new_m.append(mst)
+                else:
+                    for full, s in zip(m_states, mst):
+                        full[i] = s
             if (i + 1) % every == 0:
                 slot = i // every
                 cache = None if a_caches is None else \
                     (a_caches[0][slot], a_caches[1][slot])
-                x, kv, _ = block_forward(params.shared, cfg, x, positions,
-                                         cache, lengths)
+                with (spans.span("block.shared_attn", layer=slot)
+                      if spans.ON else spans.OFF):
+                    x, kv, _ = block_forward(params.shared, cfg, x,
+                                             positions, cache, lengths)
                 new_a.append(kv)
-        h = rms_norm(x, params.ln_f, cfg.rms_eps)
         if a_caches is not None:
-            return h, (m_states, a_caches)
-        return h, (tuple(torch.stack(s) for s in zip(*new_m)),
+            return x, (m_states, a_caches)
+        return x, (tuple(torch.stack(s) for s in zip(*new_m)),
                    tuple(torch.stack(c) for c in zip(*new_a)))
 
     def train_logits(params, inputs, remat: bool = True):
@@ -242,16 +257,20 @@ def _build_zamba(cfg: ModelConfig, device: torch.device) -> Model:
     @torch.no_grad()
     def prefill(params, inputs, lengths):
         B, T = inputs.shape
-        h, caches = _apply(params, params.embed[inputs], None, None,
+        x, caches = _apply(params, params.embed[inputs], None, None,
                            _positions(B, T, device), lengths)
-        return h[:, -1:] @ params.head, caches
+        with spans.span("model.head") if spans.ON else spans.OFF:
+            h = rms_norm(x, params.ln_f, cfg.rms_eps)
+            return h[:, -1:] @ params.head, caches
 
     @torch.no_grad()
     def decode(params, caches, inputs, positions, lengths):
         m_states, a_caches = caches
-        h, caches = _apply(params, params.embed[inputs], m_states, a_caches,
+        x, caches = _apply(params, params.embed[inputs], m_states, a_caches,
                            positions, lengths)
-        return h @ params.head, caches
+        with spans.span("model.head") if spans.ON else spans.OFF:
+            h = rms_norm(x, params.ln_f, cfg.rms_eps)
+            return h @ params.head, caches
 
     def init_cache(batch: int, max_len: int):
         d_inner, nh, hp, ds = mamba_dims(cfg)

@@ -14,6 +14,14 @@ assigns each new position, so a recycled slot never sees the previous
 request's K/V (every position below ``lengths`` is rewritten before it is
 read).  An rwkv6 state has no sequence axis, so admission overwrites the
 slot's whole state.
+
+With ``repro_torch.spans`` on, ``admit`` records ``engine.admit`` (its
+``rid`` and prompt ``tokens``) over ``model.prefill``,
+``engine.admit.merge`` and ``engine.admit.readback``; ``step`` records
+``engine.step`` (``active`` slots of ``batch``) over
+``engine.step.inputs``, ``model.decode``, ``engine.step.readback`` and
+``engine.step.finish``.  The readbacks are where the host waits for the
+card.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import spans
 from ..device import DeviceLike, resolve_device
 from ..models.zoo import Model, cache_tensors
 
@@ -91,19 +100,31 @@ class Engine:
             req.truncated = True
         for i, s in enumerate(self.slots):
             if s is None:
-                self.slots[i] = req
-                # prefill this slot (batch-1 prefill; production would batch)
-                plen = len(req.prompt)
-                toks = self._tensor(np.asarray(req.prompt, np.int64)[None])
-                logits, caches = self.model.prefill(
-                    self.params, toks, self._tensor(np.asarray([plen])))
-                self._merge_cache(i, caches)
-                self.lengths[i] = plen
-                self.last_tok[i] = int(logits[0, -1].argmax())
-                if self.exec_model is not None:
-                    self.clock_s += self.exec_model.prefill_s(plen)
+                with (spans.span("engine.admit", rid=req.rid,
+                                 tokens=len(req.prompt))
+                      if spans.ON else spans.OFF):
+                    self._prefill(i, req)
                 return True
         return False
+
+    def _prefill(self, i: int, req: Request) -> None:
+        """Batch-1 prefill of ``req`` into slot ``i`` (production would
+        batch)."""
+        self.slots[i] = req
+        plen = len(req.prompt)
+        toks = self._tensor(np.asarray(req.prompt, np.int64)[None])
+        with (spans.span("model.prefill", tokens=plen)
+              if spans.ON else spans.OFF):
+            logits, caches = self.model.prefill(
+                self.params, toks, self._tensor(np.asarray([plen])))
+        with spans.span("engine.admit.merge") if spans.ON else spans.OFF:
+            self._merge_cache(i, caches)
+        self.lengths[i] = plen
+        with (spans.span("engine.admit.readback")
+              if spans.ON else spans.OFF):
+            self.last_tok[i] = int(logits[0, -1].argmax())
+        if self.exec_model is not None:
+            self.clock_s += self.exec_model.prefill_s(plen)
 
     def _merge_cache(self, slot: int, caches: Any) -> None:
         for full, new in zip(cache_tensors(self.caches),
@@ -124,14 +145,27 @@ class Engine:
         active = [i for i, s in enumerate(self.slots) if s is not None]
         if not active:
             return {}
-        toks = self._tensor(self.last_tok[:, None].astype(np.int64))
-        pos = self._tensor(self.lengths[:, None].astype(np.int64))
-        lens = self._tensor(self.lengths + 1)
-        logits, self.caches = self.model.decode(self.params, self.caches,
-                                                toks, pos, lens)
-        if self.exec_model is not None:
-            self.clock_s += self.exec_model.decode_step_s(len(active))
-        nxt = logits[:, -1].argmax(-1).cpu().numpy()
+        with (spans.span("engine.step", active=len(active),
+                         batch=self.batch)
+              if spans.ON else spans.OFF):
+            with spans.span("engine.step.inputs") if spans.ON else spans.OFF:
+                toks = self._tensor(self.last_tok[:, None].astype(np.int64))
+                pos = self._tensor(self.lengths[:, None].astype(np.int64))
+                lens = self._tensor(self.lengths + 1)
+            with spans.span("model.decode") if spans.ON else spans.OFF:
+                logits, self.caches = self.model.decode(
+                    self.params, self.caches, toks, pos, lens)
+            if self.exec_model is not None:
+                self.clock_s += self.exec_model.decode_step_s(len(active))
+            with (spans.span("engine.step.readback")
+                  if spans.ON else spans.OFF):
+                nxt = logits[:, -1].argmax(-1).cpu().numpy()
+            with spans.span("engine.step.finish") if spans.ON else spans.OFF:
+                return self._finish(active, nxt)
+
+    def _finish(self, active: List[int], nxt: np.ndarray) -> Dict[int, int]:
+        """Each active slot takes its token; a finished request frees its
+        slot."""
         out: Dict[int, int] = {}
         for i in active:
             req = self.slots[i]
