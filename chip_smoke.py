@@ -2047,17 +2047,45 @@ def _add_counts(total: dict, more: dict) -> None:
         total[key] = total.get(key, 0) + n
 
 
+# The device kernels that one launch of a decode route runs, by op and route
+DECODE_KERNELS = {("wkv6", "decode"): ("wkv6_decode_kernel",),
+                  ("decode_attn", "tensor_core"): ("decode_split_tc_kernel",
+                                                   "decode_merge_kernel")}
+
+
+def _decode_kernels(prof) -> dict:
+    """The times each device kernel of wkv6's decode route and of
+    decode_attn ran in a torch.profiler trace, by name; no prefill runs
+    one."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            m = re.search(r"\b(wkv6_decode_kernel|decode_\w*kernel)\b",
+                          e.name())
+            if m:
+                out[m.group(1)] = out.get(m.group(1), 0) + 1
+    return out
+
+
 def phase_serve(card: str, arch: str, n_layers=None):
     """``arch`` at full width, served through the Engine at full depth or
     cut to ``n_layers``; its kernel runs as ``_serve_spec`` says, and
-    neither kernel runs on the MLA path."""
+    neither kernel runs on the MLA path.  The wrappers count the launches
+    of the eager steps, of the recording of the step's CUDA graph and of
+    the prefills; a torch.profiler trace from the recording on counts the
+    kernels the graph's replays ran, by name."""
+    import contextlib
     import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.decode_attn.ops import decode_attn
     from repro_torch.kernels.wkv6.ops import wkv6
     from repro_torch.models.zoo import build_model, cache_tensors
-    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.serve.engine import EAGER_STEPS, Engine, Request
 
     cfg = get_config(arch)
     depth = f"{cfg.n_layers} layers"
@@ -2092,38 +2120,62 @@ def phase_serve(card: str, arch: str, n_layers=None):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     _zero_counts(decode_attn, wkv6)
-    while pending or eng.n_active:
-        while pending and eng.has_free_slot():
-            req = pending.popleft()
+    with contextlib.ExitStack() as traced:
+        prof = None
+        while pending or eng.n_active:
+            while pending and eng.has_free_slot():
+                req = pending.popleft()
+                t0 = time.perf_counter()
+                if not eng.admit(req):
+                    raise AssertionError(f"no slot for request {req.rid}")
+                torch.cuda.synchronize()
+                prefill_s += time.perf_counter() - t0
+                prompt_tokens += len(req.prompt)
+            if prof is None and eng.eager_steps == EAGER_STEPS:
+                prof = traced.enter_context(
+                    profile(activities=[ProfilerActivity.CUDA]))
             t0 = time.perf_counter()
-            if not eng.admit(req):
-                raise AssertionError(f"no slot for request {req.rid}")
+            decoded += len(eng.step())
             torch.cuda.synchronize()
-            prefill_s += time.perf_counter() - t0
-            prompt_tokens += len(req.prompt)
-        t0 = time.perf_counter()
-        decoded += len(eng.step())
-        torch.cuda.synchronize()
-        decode_s += time.perf_counter() - t0
-        steps += 1
+            decode_s += time.perf_counter() - t0
+            steps += 1
+    if prof is None:
+        raise AssertionError(f"{steps} decode steps: no recording")
+    ran = _decode_kernels(prof)
     counts = {**_counts(decode_attn), **_counts(wkv6)}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    want = per_step * steps + per_prompt * N_REQUESTS
+    recorded = EAGER_STEPS + 1     # the steps whose launches Python made
+    want = per_step * recorded + per_prompt * N_REQUESTS
     for other in (decode_attn, wkv6):
         expect = want if other is op else 0
         if other.launches != expect:
             raise AssertionError(f"{other.__name__} launched "
                                  f"{other.launches} times, not {expect}, in "
-                                 f"{steps} decode steps and {N_REQUESTS} "
-                                 f"prefills of {cfg.name}")
+                                 f"{recorded} eager or recorded decode steps "
+                                 f"and {N_REQUESTS} prefills of {cfg.name}")
+    kernels = () if op is None else DECODE_KERNELS[
+        op.__name__, "decode" if op is wkv6 else "tensor_core"]
+    want_ran = {k: per_step * eng.graph_replays for k in kernels}
+    if ran != want_ran:
+        raise AssertionError(f"{eng.graph_replays} replays of the step's "
+                             f"CUDA graph ran {ran}, not {want_ran}")
+    if op is not None:     # the table's counts: what the card ran
+        route = "decode" if op is wkv6 else "tensor_core"
+        for key in (name, f"{name}:{route}"):
+            counts[key] += per_step * eng.graph_replays
     for r in reqs:
         if not (r.done and len(r.out) == r.max_new
                 and all(0 <= t < cfg.vocab for t in r.out)):
             raise AssertionError(f"request {r.rid} ended wrongly: "
                                  f"{len(r.out)}/{r.max_new} tokens")
-    how = f"{per_step} x {steps}" if not per_prompt else \
-        f"{per_step} x ({steps} + {N_REQUESTS})"
+    if (eng.eager_steps, eng.graph_replays) != (EAGER_STEPS,
+                                                steps - EAGER_STEPS):
+        raise AssertionError(f"{eng.eager_steps} eager steps and "
+                             f"{eng.graph_replays} graph replays in {steps} "
+                             f"decode steps")
+    how = f"{per_step} x {recorded}" if not per_prompt else \
+        f"{per_step} x ({recorded} + {N_REQUESTS})"
     if op is None:
         how = "decode_attn and wkv6 both 0"
     elif op is decode_attn:     # bf16, every D and G: the tensor cores
@@ -2133,7 +2185,8 @@ def phase_serve(card: str, arch: str, n_layers=None):
         by_route = dict(wkv6.launches_by_route)
         hd = cfg.d_model // cfg.n_heads
         want_by_route = dict.fromkeys(by_route, 0)
-        want_by_route[wkv6_route(1, 1, cfg.n_heads, hd)] += per_step * steps
+        want_by_route[wkv6_route(1, 1, cfg.n_heads, hd)] += \
+            per_step * recorded
         for r in reqs:
             want_by_route[wkv6_route(1, len(r.prompt), cfg.n_heads,
                                      hd)] += per_prompt
@@ -2142,9 +2195,13 @@ def phase_serve(card: str, arch: str, n_layers=None):
                                  f"{want_by_route}")
         how += f"; by route {by_route}"
     print(f"[serve] {N_REQUESTS} requests, {prompt_tokens} prompt tokens, "
-          f"{decoded} decoded tokens in {steps} decode steps; launches "
-          f"{name} {op.launches if op is not None else 0} = {how}")
-    print(f"[serve] prefill {prefill_s * 1e3:.1f} ms total "
+          f"{decoded} decoded tokens in {steps} decode steps "
+          f"({eng.graph_replays} replays of the step's CUDA graph); "
+          f"launches {name} {op.launches if op is not None else 0} = {how}; "
+          f"the replays ran {ran or 'no wkv6 or decode_attn kernel'} "
+          f"by the trace")
+    print(f"[serve] under the profiler from the recording on: "
+          f"prefill {prefill_s * 1e3:.1f} ms total "
           f"({prompt_tokens / prefill_s:.0f} prompt tokens/s, batch-1 "
           f"prefills); decode {decode_s * 1e3:.1f} ms total, "
           f"{decode_s / steps * 1e3:.2f} ms/step, {decoded / decode_s:.1f} "

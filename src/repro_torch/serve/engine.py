@@ -15,13 +15,30 @@ request's K/V (every position below ``lengths`` is rewritten before it is
 read).  An rwkv6 state has no sequence axis, so admission overwrites the
 slot's whole state.
 
+Every step decodes all ``batch`` slots from inputs the engine keeps in
+place (tokens, positions, lengths), into caches that never move, so every
+step has the same shapes and the same tensors.  On a CUDA device the
+first ``EAGER_STEPS`` steps run eagerly, which loads the kernels and the
+library handles; the next step records ``Model.decode`` and the argmax
+of its logits as one CUDA graph, and that step and every later one
+replay it: one launch a step where the host issued one per operation.
+The graph lives as long as the engine.  A CPU engine always runs
+eagerly.  ``eager_steps`` and ``graph_replays`` count the two kinds of
+step.  The kernels' launch counters (``launches``, ``launches_by_route``)
+and cost notes are kept by Python, so they count the eager steps and the
+recording, and not the replays, which run no Python: a profiler's trace
+of the card counts the replayed kernels.  Prefill always runs eagerly:
+its lengths vary.
+
 With ``repro_torch.spans`` on, ``admit`` records ``engine.admit`` (its
 ``rid`` and prompt ``tokens``) over ``model.prefill``,
 ``engine.admit.merge`` and ``engine.admit.readback``; ``step`` records
-``engine.step`` (``active`` slots of ``batch``) over
-``engine.step.inputs``, ``model.decode``, ``engine.step.readback`` and
-``engine.step.finish``.  The readbacks are where the host waits for the
-card.
+``engine.step`` (``active`` slots of ``batch``, ``graph`` 1 for a
+replayed step, else 0) over ``engine.step.inputs``, ``model.decode``
+(the replay, or the eager step's launches), ``engine.step.readback`` and
+``engine.step.finish``.  The models' ``block.*`` and ``model.head``
+spans appear on eager steps and at the recording only.  The readbacks
+are where the host waits for the card.
 """
 from __future__ import annotations
 
@@ -34,6 +51,9 @@ import torch
 from .. import spans
 from ..device import DeviceLike, resolve_device
 from ..models.zoo import Model, cache_tensors
+
+# Eager steps before a CUDA engine records its decode step as a graph.
+EAGER_STEPS = 2
 
 
 @dataclass
@@ -64,6 +84,25 @@ class Engine:
         self.lengths = np.zeros((batch,), np.int32)
         self.last_tok = np.zeros((batch,), np.int32)
         self.slots: List[Optional[Request]] = [None] * batch
+        # A step's tokens, positions and lengths, staged on the host
+        # (pinned for a card) and copied into the same device tensors
+        # every step; the step's argmax lands in ``_next``.
+        pin = self.device.type == "cuda"
+        self._staged = (torch.zeros((batch, 1), dtype=torch.int64,
+                                    pin_memory=pin),
+                        torch.zeros((batch, 1), dtype=torch.int64,
+                                    pin_memory=pin),
+                        torch.zeros((batch,), dtype=torch.int32,
+                                    pin_memory=pin))
+        self.inputs = tuple(torch.zeros(t.shape, dtype=t.dtype,
+                                        device=self.device)
+                            for t in self._staged)
+        self._next = torch.zeros((batch,), dtype=torch.int64,
+                                 device=self.device)
+        self.logits: Optional[torch.Tensor] = None  # the last step's
+        self.eager_steps = 0
+        self.graph_replays = 0
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
 
     # -------------------------------------------------------------- slots
     @property
@@ -145,23 +184,68 @@ class Engine:
         active = [i for i, s in enumerate(self.slots) if s is not None]
         if not active:
             return {}
+        graph = self.device.type == "cuda" and \
+            self.eager_steps >= EAGER_STEPS
         with (spans.span("engine.step", active=len(active),
-                         batch=self.batch)
+                         batch=self.batch, graph=int(graph))
               if spans.ON else spans.OFF):
             with spans.span("engine.step.inputs") if spans.ON else spans.OFF:
-                toks = self._tensor(self.last_tok[:, None].astype(np.int64))
-                pos = self._tensor(self.lengths[:, None].astype(np.int64))
-                lens = self._tensor(self.lengths + 1)
+                self._stage_inputs()
             with spans.span("model.decode") if spans.ON else spans.OFF:
-                logits, self.caches = self.model.decode(
-                    self.params, self.caches, toks, pos, lens)
+                if graph:
+                    self._replay()
+                else:
+                    self.logits, self.caches = self._decode()
+                    self.eager_steps += 1
             if self.exec_model is not None:
                 self.clock_s += self.exec_model.decode_step_s(len(active))
             with (spans.span("engine.step.readback")
                   if spans.ON else spans.OFF):
-                nxt = logits[:, -1].argmax(-1).cpu().numpy()
+                nxt = self._next.cpu().numpy()
             with spans.span("engine.step.finish") if spans.ON else spans.OFF:
                 return self._finish(active, nxt)
+
+    def _stage_inputs(self) -> None:
+        """Copies the step's tokens, positions and lengths into
+        ``inputs``, asynchronously from pinned memory on a card: the last
+        step's readback has waited for the copy that read them before."""
+        toks, pos, lens = self._staged
+        toks.numpy()[:, 0] = self.last_tok
+        pos.numpy()[:, 0] = self.lengths
+        lens.numpy()[:] = self.lengths + 1
+        for dst, src in zip(self.inputs, self._staged):
+            dst.copy_(src, non_blocking=True)
+
+    def _decode(self):
+        """``Model.decode`` on ``inputs``, the next tokens into ``_next``;
+        returns (logits, caches)."""
+        logits, caches = self.model.decode(self.params, self.caches,
+                                           *self.inputs)
+        torch.argmax(logits[:, -1], -1, out=self._next)
+        return logits, caches
+
+    def _replay(self) -> None:
+        """The step as a replay of the recorded graph, recorded first if
+        there is none."""
+        if self._graph is None:
+            self._capture()
+        self._graph.replay()
+        self.graph_replays += 1
+
+    def _capture(self) -> None:
+        """Records ``_decode`` as a CUDA graph; runs nothing on the card.
+        Keeps the graph's logits as ``logits``.  Raises if the model's
+        decode returned caches other than the ones it was given: a replay
+        could not keep them."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            logits, caches = self._decode()
+        if any(a is not b for a, b in zip(cache_tensors(caches),
+                                          cache_tensors(self.caches))):
+            raise RuntimeError(f"{self.model.cfg.name}: decode returned "
+                               f"new caches; a CUDA graph needs them "
+                               f"written in place")
+        self._graph, self.logits = graph, logits
 
     def _finish(self, active: List[int], nxt: np.ndarray) -> Dict[int, int]:
         """Each active slot takes its token; a finished request frees its

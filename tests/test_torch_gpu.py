@@ -1752,3 +1752,136 @@ def test_conv2d_os_any_batch_and_taps_matches_plain(N, H, W, Cin, Cout, KH,
     rtol, atol = TABLE1_TOL[dtype]
     torch.testing.assert_close(got.float(), conv2d_ref(x, w).float(),
                                rtol=rtol, atol=atol)
+
+
+def _launch_counts() -> dict:
+    """(op, route) -> launches the wrappers of decode_attn and wkv6 have
+    counted; route None is the op's total."""
+    out = {}
+    for op in (decode_attn, wkv6):
+        out[op.__name__, None] = op.launches
+        for route, n in op.launches_by_route.items():
+            out[op.__name__, route] = n
+    return out
+
+
+def _decode_kernels(fn):
+    """Runs ``fn`` under torch.profiler; returns what it returned and the
+    times each device kernel of wkv6's decode route and of decode_attn
+    ran, by name."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ran = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            m = re.search(r"\b(wkv6_decode_kernel|decode_\w*kernel)\b",
+                          e.name())
+            if m:
+                ran[m.group(1)] = ran.get(m.group(1), 0) + 1
+    return out, ran
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch_id,dtype", [
+    ("rwkv6-1.6b", torch.float32), ("zamba2-1.2b", torch.bfloat16),
+    ("llama3.2-1b", torch.bfloat16),
+    ("llama4-maverick-400b-a17b", torch.bfloat16),
+    ("deepseek-v3-671b", torch.bfloat16)])
+def test_engine_graph_replay_matches_eager_decode(arch_id, dtype):
+    """A card's engine records its decode step as a CUDA graph after
+    EAGER_STEPS eager steps and replays it, through admissions and
+    recycled slots: each step's logits, tokens and caches bit-equal to
+    ``Model.decode`` called directly on copies of the step's caches and
+    inputs.  The wrappers count the launches of the eager steps and the
+    recording as the direct call's, and none of a replay's; the
+    profiler's trace of the recorded step and of a later replay holds the
+    direct call's decode kernels, by name and count.  With spans on, a
+    replayed step is ``graph=1`` over ``model.decode`` and records no
+    block spans."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+
+    from repro_torch import spans
+    from repro_torch.configs.registry import serve_smoke_config
+    from repro_torch.models.zoo import build_model, cache_tensors
+    from repro_torch.serve.engine import EAGER_STEPS, Engine, Request
+
+    cfg = dataclasses.replace(serve_smoke_config(arch_id), dtype=dtype)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=model.device).manual_seed(0))
+    eng = Engine(model, params, batch=3, max_len=64)
+    rng = np.random.default_rng(3)
+    pending = [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab, size=int(rng.integers(3, 24))),
+        max_new=int(rng.integers(6, 16))) for i in range(14)]
+    traced = (EAGER_STEPS, EAGER_STEPS + 4)    # the recording, a replay
+    spanned = EAGER_STEPS + 3
+
+    def moved(before):
+        after = _launch_counts()
+        return {k: after[k] - n for k, n in before.items() if after[k] != n}
+
+    def run(fn, steps):
+        if steps in traced:
+            return _decode_kernels(fn)
+        return fn(), None
+
+    steps, recycled = 0, 0
+    step_spans = {}
+    while pending or eng.n_active:
+        while pending and eng.has_free_slot():
+            recycled += steps > 0
+            assert eng.admit(pending.pop(0))
+        copies = copy.deepcopy(eng.caches)
+        inputs = [torch.from_numpy(a).to(model.device) for a in (
+            eng.last_tok[:, None].astype(np.int64),
+            eng.lengths[:, None].astype(np.int64), eng.lengths + 1)]
+        active = {i: r.rid for i, r in enumerate(eng.slots) if r is not None}
+        before = _launch_counts()
+        if steps in (0, spanned):
+            spans.enable()
+        try:
+            out, ran = run(eng.step, steps)
+        finally:
+            spans.disable()
+        step_spans[steps] = spans.take()
+        by_step = moved(before)
+        before = _launch_counts()
+        (logits, copies), ran_direct = run(
+            lambda: model.decode(params, copies, *inputs), steps)
+        direct = moved(before)
+        assert by_step == (direct if steps <= EAGER_STEPS else {}), \
+            f"step {steps}"
+        assert ran == ran_direct, f"step {steps}"
+        if steps in traced:
+            assert bool(ran) == bool(direct), f"step {steps}"
+        torch.cuda.synchronize()
+        assert torch.equal(eng.logits, logits), f"step {steps}"
+        toks = logits[:, -1].argmax(-1).cpu()
+        assert out == {rid: int(toks[i]) for i, rid in active.items()}
+        for got, want in zip(cache_tensors(eng.caches),
+                             cache_tensors(copies)):
+            assert torch.equal(got, want), f"step {steps}"
+        steps += 1
+    assert steps >= 40 and recycled >= 8
+    assert (eng.eager_steps, eng.graph_replays) == \
+        (EAGER_STEPS, steps - EAGER_STEPS)
+
+    eager, replayed = step_spans[0], step_spans[spanned]
+    top = [s for s in replayed if s.parent is None]
+    assert [(s.name, s.meta["graph"]) for s in top] == [("engine.step", 1)]
+    assert [s.name for s in replayed[1:]] == [
+        "engine.step.inputs", "model.decode", "engine.step.readback",
+        "engine.step.finish"]
+    assert all(s.parent == 0 for s in replayed[1:])
+    assert eager[0].meta["graph"] == 0
+    if cfg.family in ("ssm", "hybrid"):
+        assert any(s.name.startswith("block.") for s in eager)

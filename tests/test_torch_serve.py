@@ -170,3 +170,71 @@ def test_new_family_recycled_slot_decodes_like_a_fresh_one(arch_id):
     eng = Engine(model, params, batch=1, max_len=32, device="cpu")
     _serve(eng, Request, [first], max_new=12)    # leaves state and K/V
     assert _serve(eng, Request, [second], max_new=12) == fresh
+
+
+def _serve_queue(eng, prompts, max_new, on_step=None):
+    """``prompts`` through ``eng``, admitted as slots free up; calls
+    ``on_step(eng)`` before each step.  Returns the steps taken."""
+    pending = [Request(rid=i, prompt=p, max_new=max_new)
+               for i, p in enumerate(prompts)]
+    steps = 0
+    while pending or eng.n_active:
+        while pending and eng.has_free_slot():
+            assert eng.admit(pending.pop(0))
+        if on_step is not None:
+            on_step(eng)
+        eng.step()
+        steps += 1
+    return steps
+
+
+GRAPH_ARCHS = ["llama3.2-1b", "rwkv6-1.6b", "zamba2-1.2b",
+               "llama4-maverick-400b-a17b"]
+
+
+@pytest.mark.parametrize("arch_id", GRAPH_ARCHS)
+def test_cpu_engine_steps_eagerly(arch_id):
+    """A CPU engine never records a graph: every step is eager, and the
+    last step's logits are the model's own."""
+    cfg = serve_smoke_config(arch_id)
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    eng = Engine(model, params, batch=2, max_len=32, device="cpu")
+    steps = _serve_queue(eng, _prompts(4, 3, 10, seed=7), max_new=5)
+    assert steps > 2
+    assert (eng.eager_steps, eng.graph_replays) == (steps, 0)
+    assert eng._graph is None
+    assert eng.logits.shape == (2, 1, cfg.vocab)
+
+
+@pytest.mark.parametrize("arch_id", GRAPH_ARCHS)
+def test_engine_inputs_keep_their_storage(arch_id):
+    """The step's tokens, positions and lengths live in the same tensors
+    through steps and admissions, and hold each step's values."""
+    cfg = serve_smoke_config(arch_id)
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    eng = Engine(model, params, batch=2, max_len=32, device="cpu")
+    ptrs = [t.data_ptr() for t in eng.inputs]
+    seen = []
+
+    def staged_last_step():
+        """The inputs hold what the host had before the last step."""
+        assert [t.data_ptr() for t in eng.inputs] == ptrs
+        toks, pos, lens = eng.inputs
+        assert (toks.dtype, pos.dtype, lens.dtype) == \
+            (torch.int64, torch.int64, torch.int32)
+        last_tok, lengths = seen[-1]
+        assert toks[:, 0].tolist() == last_tok.tolist()
+        assert pos[:, 0].tolist() == lengths.tolist()
+        assert lens.tolist() == (lengths + 1).tolist()
+
+    def before_step(eng):
+        if seen:
+            staged_last_step()
+        seen.append((eng.last_tok.copy(), eng.lengths.copy()))
+
+    _serve_queue(eng, _prompts(5, 3, 10, seed=8), max_new=4,
+                 on_step=before_step)
+    assert len(seen) > 2
+    staged_last_step()

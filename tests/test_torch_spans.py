@@ -41,7 +41,7 @@ def _expected(arch):
     admit += [("engine.admit.merge", 0, {}),
               ("engine.admit.readback", 0, {})]
     s = len(admit)
-    step = [("engine.step", None, {"active": 1, "batch": 2}),
+    step = [("engine.step", None, {"active": 1, "batch": 2, "graph": 0}),
             ("engine.step.inputs", s, {}),
             ("model.decode", s, {})]
     step += _blocks(arch, s + 2)
