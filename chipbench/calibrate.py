@@ -3,7 +3,8 @@
 program's number and its control's on the same outputs (the reference one
 precision below the configuration's dtype), after a window of
 ``--seconds``, each judged against the cell's limit (``correct``,
-``control_correct``).  Prints one JSON line a seed and, with ``--out``,
+``control_correct``), and the card's peak allocation of the check
+(``check_peak_bytes``).  Prints one JSON line a seed and, with ``--out``,
 writes them all.
 
     python3 chipbench/calibrate.py --workload <cell> --seeds 1,2,3 \

@@ -23,12 +23,10 @@ def build(run: harness.Run):
 
 
 def reference_weights(run: harness.Run) -> Dict[str, torch.Tensor]:
-    """The same weights again, in float32, for the reference."""
+    """The same weights again, as drawn, in the dtype they are served in;
+    the reference upcasts each where it uses it."""
     specs = harness.reference(run.cfg).param_specs(run.cfg)
-    drawn = weights.draw(specs, run.seed, run.device)
-    out = {n: t.float() for n, t in drawn.items()}
-    del drawn
-    return out
+    return weights.draw(specs, run.seed, run.device)
 
 
 def sync(device: torch.device) -> None:

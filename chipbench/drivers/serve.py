@@ -15,9 +15,19 @@ have it.
 Correctness: once the window has closed and the engine is freed, a
 sample of the requests finished inside it, drawn from the seed with the
 longest among them, goes through the plain reference: one float32
-forward over each prompt and its served tokens.  The number compared,
-``served_logit_gap``, is the widest gap by which a served token's logit
-lies below the reference's best at its position.
+forward over each prompt and its served tokens, on the weights drawn again
+in the served dtype.  The number compared, ``served_logit_gap``, is the
+widest gap by which a served token's logit lies below the reference's best
+at its position.
+
+A traced run turns the program's own spans (``repro_torch.spans``) on in
+its window, for the host's own times with no profiler running
+(``run.window_program_spans``), and in the profiled stretch, to put the
+card's idle time under them (``run.program_spans``).  Its window reports
+no end-to-end metric.  The profiler slows each launch of a graph from
+tens of microseconds to milliseconds, and once it has run in a process
+it leaves CUPTI attached, so no stretch after it reads the host's times.
+An untraced run turns no span on.
 """
 from __future__ import annotations
 
@@ -36,6 +46,17 @@ from chipbench.reference.plain import CONTROL, FLOAT32, strict_float32
 from chipbench.trace import Profiler, Recorder
 
 TRACE_SECONDS = 3       # the profiled stretch after a traced run's window
+
+
+def tiny_traffic(cell: Dict) -> Dict:
+    """``cell`` at the tests' CPU size: 4 clients, prompts of 8-40 tokens,
+    outputs of 4-12, 3 requests checked."""
+    tr = cell["traffic"]
+    tr.update(clients=4, max_len=64, warmup_steps=6)
+    tr["prompt"] = dict(tr["prompt"], lo=8, hi=40)
+    tr["output"] = dict(tr["output"], lo=4, hi=12)
+    cell["check"]["requests"] = 3
+    return cell
 
 
 @dataclass
@@ -139,23 +160,40 @@ def setup(run: harness.Run):
 
 
 def window(run: harness.Run, server: Server, seconds: float) -> None:
-    """The measured window, then (traced runs) the profiled stretch."""
+    """The measured window, then (traced runs) the profiled stretch; a
+    traced run serves both with the program's spans on."""
     run.peak_bytes = common.peak_bytes(run.device)
     common.reset_peak(run.device)
     w0 = time.time_ns()
-    server.run_until(w0 + int(seconds * 1e9))
+    if run.trace:
+        _with_spans(server, w0 + int(seconds * 1e9))
+    else:
+        server.run_until(w0 + int(seconds * 1e9))
     run.window = (w0, time.time_ns())
     _report_window(run, server.rec.spans)
     run.window_peak_bytes = common.peak_bytes(run.device)
     if run.trace:
+        from repro_torch import spans
+        run.window_program_spans = spans.take()
         with Profiler(server.rec) as prof:
-            server.run_until(time.time_ns() + TRACE_SECONDS * 10**9)
+            _with_spans(server, time.time_ns() + TRACE_SECONDS * 10**9)
         run.stretch = prof.stretch
+        run.program_spans = spans.take()
     run.peak_bytes = max(run.peak_bytes, common.peak_bytes(run.device))
     run.spans = server.rec.spans
     run.requests = server.served
     run.attempted = sum(1 for s in server.served if run.in_window(s.t_first))
     run.failed = 0
+
+
+def _with_spans(server: Server, t_end: int) -> None:
+    """Serves until ``t_end`` with the program's spans on."""
+    from repro_torch import spans
+    spans.enable()
+    try:
+        server.run_until(t_end)
+    finally:
+        spans.disable()
 
 
 def _report_window(run, spans) -> None:
@@ -216,11 +254,14 @@ def gaps(run: harness.Run, chosen: List[Served], ref_weights,
 
 def check(run: harness.Run, server: Server,
           precisions=(FLOAT32,)) -> Dict[str, float]:
-    """Frees the engine, then reads the sampled requests' gaps."""
+    """Frees the engine, then reads the sampled requests' gaps, and the
+    card's peak allocation from the engine's release to the last gap."""
     chosen = sample(run, server.served, int(run.cell["check"]["requests"]))
     server.engine = None
     common.free(run.device)
+    common.reset_peak(run.device)
     readings = gaps(run, chosen, common.reference_weights(run), precisions)
+    readings["check_peak_bytes"] = common.peak_bytes(run.device)
     readings["requests"] = len(chosen)
     readings["tokens"] = sum(len(s.tokens) for s in chosen)
     return readings
@@ -259,4 +300,5 @@ def run(run: harness.Run, t_start: float) -> None:
     readings = check(run, server)
     run.checks = judged(run, readings["served"], readings["requests"])
     print(f"chipbench: compared {readings['tokens']} served tokens of "
-          f"{readings['requests']} requests", file=sys.stderr)
+          f"{readings['requests']} requests; the check's peak "
+          f"{readings['check_peak_bytes'] / 2**30:.3f} GiB", file=sys.stderr)

@@ -1,7 +1,11 @@
-"""The program's own spans (``repro_torch.spans``, in ``run.program_spans``)
-against the traced stretch: host time inside a span of the program, and
+"""The program's own spans (``repro_torch.spans``) against the benchmark's
+spans and the traced stretch: host time inside a span of the program, and
 the card's idle time put down to the innermost span of the program that
-was open on the host.
+was open on the host (``run.program_spans``).
+
+The host's own times come from a traced run's window, which runs the
+program's spans with no profiler (``run.window_program_spans``); the
+card's idle time, from the profiled stretch.
 
 Kept apart from ``trace.reduce`` and ``trace.idle_by_host_span``: those
 bisect over the starts of the benchmark's spans, which never nest; the
@@ -14,7 +18,7 @@ import bisect
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from chipbench.readers import stretch_spans
+from chipbench.readers import stretch_spans, window_spans
 
 OUTSIDE = "outside spans"     # trace.idle_by_host_span's name for the rest
 
@@ -122,9 +126,11 @@ def idle_gaps_program(run, n: int = 10) -> Optional[List[list]]:
 
 def host_ms_per_step(run, name: str) -> Optional[float]:
     """Mean host ms a decode step inside program spans of ``name``, over
-    the benchmark's decode steps wholly inside the stretch."""
-    steps = stretch_spans(run, "decode_step")
-    prog = program_spans(run)
+    the benchmark's decode steps of the window, which ran the program's
+    spans without the profiler: under the profiler a replayed graph's
+    launch takes milliseconds, not tens of microseconds."""
+    steps = window_spans(run, "decode_step")
+    prog = getattr(run, "window_program_spans", None) or []
     if not steps or not prog:
         return None
     inside = _named(prog, name, steps)
@@ -145,13 +151,6 @@ def decode_launch_ms(run) -> Optional[float]:
 
 def decode_readback_ms(run) -> Optional[float]:
     return host_ms_per_step(run, "engine.step.readback")
-
-
-def decode_launch_idle_ms(run) -> Optional[float]:
-    steps = stretch_spans(run, "decode_step")
-    if not steps or not program_spans(run):
-        return None
-    return idle_ns_inside(run, "model.decode", steps) / 1e6 / len(steps)
 
 
 def prefill_launch_idle_ms_per_ktok(run) -> Optional[float]:

@@ -7,6 +7,19 @@ control runs the same code with every matrix product one step below the
 configuration's dtype: for bfloat16, on float8 (e4m3) operands, each
 tensor scaled by its own largest magnitude, summed in float32; for
 float32, on TF32 operands.
+
+A reference module ``reference/<family>.py`` gives:
+
+    param_specs(cfg) -> [ParamSpec]   every parameter, by the port's names
+    logits(P, cfg, ids, prec, positions=None) -> float32 logits
+    tiny(cfg) -> cfg      ``derived`` at the tests' tiny sizes, which the
+                          tests set in ``model`` from the port's own
+    medium(cfg) -> cfg    the CPU size of the control's test
+
+``P`` holds the weights as drawn, in the served dtype: the check keeps 2 B
+a bfloat16 parameter on the card.  A reference upcasts each weight to
+float32 where it uses it, which is exact, and keeps no float32 copy of
+them all.
 """
 from __future__ import annotations
 

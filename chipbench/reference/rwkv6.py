@@ -11,6 +11,9 @@ here, so both sides compute one function:
       xn2 = RMSNorm(x), xc = xn2 + (xp2 - xn2) * mix_c
       x += relu(xc Wck)^2 Wcv
     logits = RMSNorm(x) Whead
+
+The weights come as drawn, in the served dtype; each is upcast to float32
+where it is used.
 """
 from __future__ import annotations
 
@@ -24,6 +27,26 @@ from .plain import (FLOAT32, ParamSpec, Precision, fan_in, model_dtype,
                     shift, uniform)
 
 F32 = torch.float32
+
+
+def tiny(cfg: Dict) -> Dict:
+    """``cfg``, whose ``model`` the tests have set to the port's tiny
+    sizes, with ``derived`` as the port derives it."""
+    m = cfg["model"]
+    d = m["d_model"]
+    cfg["derived"] = {"head_size": d // m["n_heads"],
+                      "decay_lora_rank": max(32, d // 32)}
+    return cfg
+
+
+def medium(cfg: Dict) -> Dict:
+    """``cfg`` at a CPU size at which the control's rounding passes the
+    cell's limit: the full depth, vocabulary and dtype, width 512 in
+    heads of 64."""
+    cfg["model"].update(d_model=512, n_heads=8, n_kv_heads=8, d_ff=1792,
+                        head_dim=64)
+    cfg["derived"].update(head_size=64, decay_lora_rank=32)
+    return cfg
 
 
 def param_specs(cfg: Dict) -> List[ParamSpec]:

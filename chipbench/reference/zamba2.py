@@ -14,6 +14,9 @@ published model are listed in ``configs/zamba2-1.2b.json``
     shared block: x += Attn(RMSNorm(x)) (causal, RoPE on half-split
       pairs), x += SwiGLU(RMSNorm(x))
     logits = RMSNorm(x) Whead
+
+The weights come as drawn, in the served dtype; each is upcast to float32
+where it is used.
 """
 from __future__ import annotations
 
@@ -34,6 +37,30 @@ def dims(cfg: Dict):
     dv = cfg["derived"]
     return dv["d_inner"], dv["mamba_heads"], dv["mamba_head_dim"], \
         cfg["model"]["ssm_state"]
+
+
+def tiny(cfg: Dict) -> Dict:
+    """``cfg``, whose ``model`` the tests have set to the port's tiny
+    sizes, with ``derived`` as the port derives it: Mamba2 twice as wide
+    as d, split into n_heads heads."""
+    m = cfg["model"]
+    d, H = m["d_model"], m["n_heads"]
+    apps = m["n_layers"] // m["attn_every"]
+    cfg["derived"] = {"d_inner": 2 * d, "mamba_heads": H,
+                      "mamba_head_dim": 2 * d // H,
+                      "attention_applications": apps}
+    return cfg
+
+
+def medium(cfg: Dict) -> Dict:
+    """``cfg`` at a CPU size at which the control's rounding passes the
+    cell's limit: the full vocabulary and dtype, 12 layers of width 256,
+    a shared block after every third."""
+    cfg["model"].update(n_layers=12, d_model=256, n_heads=4, n_kv_heads=4,
+                        d_ff=512, head_dim=64, attn_every=3)
+    cfg["derived"].update(d_inner=512, mamba_heads=4, mamba_head_dim=128,
+                          attention_applications=4)
+    return cfg
 
 
 def param_specs(cfg: Dict) -> List[ParamSpec]:

@@ -85,7 +85,7 @@ def main(argv=None) -> None:
     result = {"correct": run.correct, "attempted": run.attempted,
               "failed": run.failed, "metrics": metrics, "device": dev}
     if run.trace and run.stretch is not None:
-        from chipbench import trace
+        from chipbench import program, trace
         st = run.stretch
         print(f"chipbench: traced {len(st.ops)} device operations in "
               f"{st.seconds:.3f} s, {st.matched} matched to their launch, "
@@ -96,6 +96,9 @@ def main(argv=None) -> None:
         result["breakdown"] = {
             "device_ops": trace.top_device_ops(run.stretch),
             "idle_gaps": trace.idle_by_host_span(run.stretch, run.spans)}
+        by_program = program.idle_gaps_program(run)
+        if by_program is not None:
+            result["breakdown"]["idle_gaps_program"] = by_program
     result["checks"] = run.checks
     guard.check("end")
     for name, c in run.checks.items():

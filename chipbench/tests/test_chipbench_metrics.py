@@ -192,3 +192,23 @@ def test_percentile_matches_linear_interpolation():
             float(np.percentile(v, q)))
     assert readers.percentile([], 95) is None
     assert math.isclose(H100_SXM["bf16_flops"], 989e12)
+
+
+def test_decode_attn_roofline_counts_the_files_attention_applications():
+    """The work of a step is the configuration's ``attention_applications``
+    times one call: 6 on zamba2-1.2b, as n_layers // attn_every gave; a
+    configuration whose attention layers are not periodic states its own
+    count."""
+    work = harness.metric_module("decode_attn_roofline").work
+    cfg = harness.config("zamba2-1.2b")
+    m = cfg["model"]
+    assert cfg["derived"]["attention_applications"] == \
+        m["n_layers"] // m["attn_every"] == 6
+    meta = {"batch": 64, "ctx_all": 20000}
+    flops, nbytes = work(cfg, meta)
+    assert flops == 6 * 4.0 * 20000 * 32 * 64
+    assert nbytes == 6 * ((2.0 * 20000 * 32 * 64 + 2 * 64 * 32 * 64) * 2
+                          + 4 * 64)
+    cfg["derived"]["attention_applications"] = 4
+    del m["attn_every"]
+    assert work(cfg, meta) == (flops * 4 / 6, nbytes * 4 / 6)

@@ -70,6 +70,7 @@ def _run(cfg_name="rwkv6-1.6b-fp32", with_program=True):
     run.requests = reqs
     if with_program:
         run.program_spans = _program()
+        run.window_program_spans = run.program_spans
     return run
 
 
@@ -124,14 +125,12 @@ def test_decode_readback_ms_by_hand():
     assert program.decode_readback_ms(_run()) == pytest.approx(9.5)
 
 
-def test_decode_launch_idle_ms_by_hand():
-    """Idle 33-36 and 62-66 ms inside model.decode, over two steps."""
+def test_the_host_times_fit_in_a_step():
+    """Launch and readback lie inside their steps: together no longer
+    than the mean step."""
     run = _run()
-    got = program.decode_launch_idle_ms(run)
-    assert got == pytest.approx(3.5)
     steps = [s for s in run.spans if s.name == "decode_step"]
     mean_step = sum(s.t1 - s.t0 for s in steps) / 1e6 / len(steps)
-    assert got <= program.decode_launch_ms(run)
     assert program.decode_launch_ms(run) + \
         program.decode_readback_ms(run) <= mean_step
 
@@ -150,7 +149,47 @@ def test_steps_past_the_stretch_are_left_out():
     assert program.decode_launch_ms(run) == pytest.approx(17.5)
 
 
-READERS = ("decode_launch_ms", "decode_readback_ms", "decode_launch_idle_ms",
+def _window_after(run):
+    """``run`` with a window of its own after the traced stretch, 200-300
+    ms, whose program spans ran without the profiler: two decode steps
+    whose launch takes 0.1 ms and whose readback 20."""
+    meta = {"batch": 64, "active": 64, "ctx_all": 6400, "ctx_active": 6400}
+    rows = []
+    for t in (200, 250):
+        run.spans.append(Span("decode_step", t * MS, (t + 25) * MS,
+                              dict(meta)))
+        i = len(rows)
+        rows += [PSpan("engine.step", t * MS, (t + 24) * MS),
+                 PSpan("model.decode", t * MS + MS, t * MS + MS + MS // 10,
+                       i),
+                 PSpan("engine.step.readback", (t + 2) * MS, (t + 22) * MS,
+                       i)]
+    run.window = (200 * MS, 300 * MS)
+    run.window_program_spans = rows
+    return run
+
+
+@pytest.mark.parametrize("reader, hand", [("decode_launch_ms", 0.1),
+                                          ("decode_readback_ms", 20.0)])
+def test_host_times_come_from_the_window(reader, hand):
+    """The host's times a step are read over the window's steps and
+    program spans alone; the profiled stretch's, whose launches the
+    profiler slows, are left out."""
+    assert getattr(program, reader)(_window_after(_run())) == \
+        pytest.approx(hand)
+
+
+def test_idle_time_comes_from_the_profiled_stretch():
+    """The card's idle time is read in the profiled stretch as before; the
+    window, which has no trace, adds nothing."""
+    run = _window_after(_run())
+    assert program.prefill_launch_idle_ms_per_ktok(run) == \
+        pytest.approx(1.5)
+    assert dict(program.idle_gaps_program(run, n=None)) == \
+        pytest.approx({k: v / 1e3 for k, v in GAPS.items()})
+
+
+READERS = ("decode_launch_ms", "decode_readback_ms",
            "prefill_launch_idle_ms_per_ktok")
 
 
@@ -165,14 +204,46 @@ def test_a_run_without_program_spans_reads_nothing(name):
     assert program.idle_gaps_program(bare) is None
 
 
-@pytest.mark.parametrize("cell", ["rwkv6-1.6b-fp32.rag", "zamba2-1.2b.chat"])
+SERVING = [c["name"] for c in harness.benchmark()["workloads"]
+           if harness.workload(c["name"])["driver"] == "serve"]
+
+
+@pytest.mark.parametrize("cell", SERVING)
 def test_every_accepted_metric_reads_the_same_with_program_spans(cell):
+    """The metrics that read the benchmark's spans and the trace read the
+    same whether the run holds the program's spans or not; those that
+    re-export a reader of ``chipbench.program`` read a number with them
+    and nothing without."""
     bench = harness.benchmark()
     cfg_name = harness.workload(cell)["config"]
     full, bare = _run(cfg_name), _run(cfg_name, with_program=False)
     for trace in (False, True):
         for m in harness.metrics_of(bench, cell, trace):
             mod = harness.metric_module(m["name"])
-            assert mod.read(full) == mod.read(bare), m["name"]
+            if mod.read.__module__ == program.__name__:
+                assert mod.read(bare) is None, m["name"]
+                assert mod.read(full) is not None, m["name"]
+            else:
+                assert mod.read(full) == mod.read(bare), m["name"]
     assert idle_by_host_span(full.stretch, full.spans) == \
         idle_by_host_span(bare.stretch, bare.spans)
+
+
+@pytest.mark.parametrize("name, reader, hand", [
+    ("decode_launch_ms", "decode_launch_ms", 17.5),
+    ("decode_readback_ms", "decode_readback_ms", 9.5),
+    ("prefill_launch_idle_ms_per_ktok.rag",
+     "prefill_launch_idle_ms_per_ktok", 1.5),
+    ("prefill_launch_idle_ms_per_ktok.chat",
+     "prefill_launch_idle_ms_per_ktok", 1.5)])
+def test_the_program_metrics_are_its_readers(name, reader, hand):
+    """Each metric file of the program's spans is a reader of
+    ``chipbench.program``, read by hand on the made-up run, and listed
+    for every serving cell of its end-to-end metric."""
+    mod = harness.metric_module(name)
+    assert mod.read is getattr(program, reader)
+    assert mod.read(_run()) == pytest.approx(hand)
+    entry = next(m for m in harness.benchmark()["per_layer"]
+                 if m["name"] == name)
+    assert entry["source"] == "program_span"
+    assert set(entry["workloads"]) <= set(SERVING)

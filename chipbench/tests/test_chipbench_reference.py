@@ -9,6 +9,8 @@ from chipbench.reference.plain import (FLOAT32, FP8, TF32, strict_float32,
                                        to_tf32)
 from chipbench.tests.tiny import tiny_config
 
+CONFIGS = [c["name"] for c in harness.benchmark()["configs"]]
+
 
 def _port(cfg, seed):
     from repro_torch.models.zoo import build_model
@@ -21,7 +23,7 @@ def _port(cfg, seed):
     return mcfg, model, params, drawn
 
 
-@pytest.mark.parametrize("name", ["rwkv6-1.6b-fp32", "zamba2-1.2b"])
+@pytest.mark.parametrize("name", CONFIGS)
 def test_reference_logits_match_the_port(name):
     cfg = tiny_config(name)
     mcfg, model, params, drawn = _port(cfg, seed=2**31 + 7)
@@ -34,7 +36,7 @@ def test_reference_logits_match_the_port(name):
     assert (got - want).abs().max() <= 1e-4 * scale
 
 
-@pytest.mark.parametrize("name", ["rwkv6-1.6b-fp32", "zamba2-1.2b"])
+@pytest.mark.parametrize("name", CONFIGS)
 def test_reference_follows_prefill_then_decode(name):
     """The port's prefill and three decode steps through its cache give
     the reference's logits at those positions."""
